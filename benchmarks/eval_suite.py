@@ -1,6 +1,6 @@
 """Honest evaluation harness: oracle-rendered stress sequences → RMSE.
 
-VERDICT r2 item 6. Every previous closed-loop number came from
+Every other closed-loop number comes from
 SyntheticSource, which renders ground truth with the *same* production
 raycaster the trackers use — an inverse crime. This suite instead renders
 with ``raycast_oracle`` (independent textbook derivation,
@@ -204,10 +204,9 @@ def main():
         for est in args.estimators.split(","):
             t0 = time.time()
             # two_obj at 512 particles is PARTICLE-STARVED for the joint
-            # 26-dim state (session-27 diagnosis: rotation RMSE 2× the
-            # 2048-particle run and ~2.5× the 10k production
-            # certification, EVAL_TPU.md) — the headline table must not
-            # quote a starvation artifact (VERDICT r4 weak #3), so the
+            # 26-dim state (rotation RMSE 2× the 2048-particle run) —
+            # the headline table must not
+            # quote a starvation artifact, so the
             # PF two_obj legs run at ≥2048. --quick keeps the smoke size.
             n_part = particles
             if scen == "two_obj" and not args.quick \
@@ -219,7 +218,7 @@ def main():
                 run = node.run(tracker, src)
                 # two_obj: object 1 is a box — report rotation modulo its
                 # 4-element symmetry group (a naive quat metric mixes
-                # genuine error with symmetry aliasing, VERDICT r3 item 5)
+                # genuine error with symmetry aliasing)
                 sym = None
                 if scen == "two_obj":
                     from dbot_ros_tpu.utils.se3 import box_symmetry_quats
@@ -254,9 +253,8 @@ def main():
         "",
         f"Generated by `benchmarks/eval_suite.py` "
         f"({frames} frames, {particles} particles — PF two_obj legs at "
-        "2048: the joint 26-dim state is particle-starved at 512 "
-        "(session-27 diagnosis; production 10k certification in "
-        "EVAL_TPU.md) — 40×30 depth, "
+        "2048: the joint 26-dim state is particle-starved at 512) "
+        "— 40×30 depth, "
         "independent `raycast_oracle` renderer — no inverse crime; "
         "see the module docstring for the protocols).",
         "",
@@ -292,8 +290,8 @@ def main():
         "the unquotiented number): the box's π-flips are genuinely "
         "unidentifiable, not tracking error. The PF legs run at 2048 "
         "particles (round 5): 512 was joint-lineage particle "
-        "starvation (on-chip sweep, EVAL_TPU.md session 27: box rot "
-        "0.264 → 0.121 at 2048); the remaining ≈0.12-0.15 sits at the "
+        "starvation (box rot 0.264 → 0.121 at 2048); the remaining "
+        "≈0.12-0.15 sits at the "
         "crossing-phase silhouette-contrast plateau (quotient equals "
         "the naive metric — not flip aliasing; pooled PF rotation at "
         "8192 = 0.093 rad, production 10k certification 0.089/0.130).",

@@ -1,9 +1,9 @@
-"""dbot_ros_tpu — TPU-native depth-based Bayesian object tracking.
+"""dbot_ros_tpu — accelerator-native depth-based Bayesian object tracking.
 
 A from-scratch JAX/XLA/Pallas re-design of the bayesian-object-tracking
 reference system (dbot_ros + dbot + fl): 6-DoF pose tracking of known rigid
 objects from depth streams via a Rao-Blackwellized coordinate particle filter
-and a robust multi-sensor Gaussian filter, with batched MXU raycasting in
+and a robust multi-sensor Gaussian filter, with batched matmul raycasting in
 place of the reference's OpenGL/CUDA render-and-score path.
 
 Layout (mirrors SURVEY.md §7):

@@ -113,8 +113,8 @@ class GaussianTrackerConfig:
     # BufferConfiguration D14). Applied on the flattened (downsampled)
     # pixel grid; background/renders follow the same subset.
     pixel_stride: int = 1
-    # Sigma-point render backend (VERDICT r4 item 1): "deferred" =
-    # candidate one-hot MXU pass (one exact reference scan per IPLF
+    # Sigma-point render backend: "deferred" =
+    # candidate one-hot matmul pass (one exact reference scan per IPLF
     # iteration + per-sigma candidate matmuls — the PF's D12 candidate
     # machinery shared with the GF, as the reference shares D5);
     # "exact" = full scan-over-triangles per sigma pose (oracle path).

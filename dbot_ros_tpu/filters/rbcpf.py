@@ -127,13 +127,12 @@ def _maybe_resample(key, log_w, states, occ, old_loglik, max_kl,
     (the reference's CUDA scatter/gather of persistent occlusion arrays,
     D13, reduced to one hook).
 
-    The trigger is NOT a ``lax.cond``: branching over the occlusion map
-    costs ~4.3 ms/step at the 10k-particle north star (measured v5e —
-    conditional outputs aliasing donated operands force full-map copies),
-    ~10x the gather itself (0.39 ms, HBM-roofline). Instead the parent
-    vector is ``where``-selected between systematic parents and identity,
-    and the gather runs unconditionally — a flat ~0.4 ms every frame
-    instead of ~4.3 ms on resample frames. Statically-disabled resampling
+    The trigger is NOT a ``lax.cond``: conditional outputs aliasing
+    donated operands force full-map copies of the occlusion state.
+    Instead the parent vector is ``where``-selected between systematic
+    parents and identity, and the gather runs unconditionally — one
+    bandwidth-bound map pass every frame, no copies on resample frames.
+    Statically-disabled resampling
     (``max_kl >= 1e8``) skips all of it at trace time.
     """
     kl = rs.kl_to_uniform(log_w)
@@ -144,7 +143,7 @@ def _maybe_resample(key, log_w, states, occ, old_loglik, max_kl,
     idx = jnp.where(do, rs.systematic_indices(key, log_w, p),
                     jnp.arange(p, dtype=jnp.int32))
     # mode='clip': idx is in-bounds by construction; the default fill
-    # mode emits a full-size bounds-guard select (0.6 ms on the map)
+    # mode emits a full-size bounds-guard select over the map
     tree = (jnp.take(states, idx, axis=0, mode="clip"),
             occ_gather(occ, idx),
             jnp.take(old_loglik, idx, axis=0, mode="clip"))

@@ -7,9 +7,10 @@ filter.hpp``; Issac et al., ICRA 2016): every (downsampled) depth pixel is
 an independent scalar sensor; the update is a sigma-point statistical
 linearization with per-pixel body-tail robustification.
 
-TPU-first redesign of the update (SURVEY.md P2): instead of the reference's
-*sequential* per-pixel scalar updates, one **joint information-form update**
-over all pixels — a handful of MXU matmuls + one 12×12 solve instead of
+Accelerator-first redesign of the update (SURVEY.md P2): instead of the
+reference's *sequential* per-pixel scalar updates, one **joint
+information-form update** over all pixels — a handful of matmuls + one
+12×12 solve instead of
 4800 dependent scalar steps:
 
     Λ' = P⁻¹ + Σ_c H_cᵀ diag(1/R̂_c) H_c     (channels c; H = P_xyᵀ P_lin⁻¹)
@@ -66,7 +67,7 @@ class GaussianBelief:
     "object should cover this pixel" and "object should not") instead of
     being discontinuities the robust weighting has to reject. The
     reference GF has no such term and is correspondingly weaker laterally;
-    this is a TPU-cheap structural improvement, not extra cost per step.
+    this is a cheap structural improvement, not extra cost per step.
     """
 
     mean: jax.Array
@@ -87,7 +88,7 @@ class RgfStepInfo:
     # per-frame observation log-marginal Σ_px log p(y_px | belief) at the
     # converged mean — the evidence the multi-hypothesis trial races
     # (near-symmetric flips tie on inlier RATE but separate on the
-    # accumulated marginal; VERDICT r4 item 4)
+    # accumulated marginal)
     obs_loglik: jax.Array
 
 
@@ -255,7 +256,7 @@ def update(belief: GaussianBelief, z_obs, render_fn,
     # observable at sub-pixel convergence; H stays a valid linearization,
     # just computed over a wider probe region.
     #
-    # The floor ANNEALS with the belief (VERDICT r3 item 4): a wide probe
+    # The floor ANNEALS with the belief: a wide probe
     # is a smoothing kernel over the discontinuous render, so holding it
     # at the configured maximum after convergence biases the
     # linearization by the probe width (measured ~2× the PF's rot RMSE

@@ -60,7 +60,7 @@ def make_rb_sensor(meshes, camera: CameraModel, beam_params: BeamParams,
                                  frame_rate, **backend_kwargs)
 
     if backend == "deferred":
-        # Large-particle-batch MXU path (ops/deferred.py): one exact
+        # Large-particle-batch matmul path (ops/deferred.py): one exact
         # reference render per object at the particles' mean pose, then
         # candidate-set intersection for the whole batch; multi-object
         # scenes min-combine per-object deferred depths (the same

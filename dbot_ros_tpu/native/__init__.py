@@ -2,17 +2,18 @@
 
 The reference implements its host plumbing (mesh loading, image conversion,
 frame buffering) in C++; here the equivalents live in ``host_runtime.cpp``
-compiled to a shared library and bound via ctypes. Every entry point has a
-pure-Python/NumPy fallback so the framework works before the library is
-built. Build with::
-
-    python -m dbot_ros_tpu.native.build
+compiled to a shared library and bound via ctypes. The library is not
+committed: :func:`load_native` builds it from the source at first use when
+``g++`` is present (or build it ahead with
+``python -m dbot_ros_tpu.native.build``). Every entry point has a
+pure-Python/NumPy fallback so the framework works without it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
@@ -24,14 +25,31 @@ def _lib_path() -> str:
     return os.path.join(os.path.dirname(__file__), "libdbot_host.so")
 
 
+def _ensure_built(path: str) -> bool:
+    """Build the library from ``host_runtime.cpp`` if it is missing or
+    older than the source; False when it cannot be built here."""
+    src = os.path.join(os.path.dirname(path), "host_runtime.cpp")
+    if (os.path.exists(path)
+            and os.path.getmtime(path) >= os.path.getmtime(src)):
+        return True
+    from dbot_ros_tpu.native import build
+
+    try:
+        build.build(verbose=False)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return os.path.exists(path)
+
+
 def load_native():
-    """Load (and cache) the native library, or return None if not built."""
+    """Load (and cache) the native library, building it at first use;
+    None when it is unavailable."""
     global _LIB, _LIB_TRIED
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
     path = _lib_path()
-    if not os.path.exists(path):
+    if not _ensure_built(path):
         return None
     try:
         lib = ctypes.CDLL(path)

@@ -5,17 +5,30 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import tempfile
 
 
 def build(verbose: bool = True) -> str:
+    """Compile ``host_runtime.cpp`` next to itself; returns the path.
+
+    Writes to a temporary name and renames, so processes that build at
+    the same time (test workers) never load a half-written library.
+    """
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, "host_runtime.cpp")
     out = os.path.join(here, "libdbot_host.so")
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-Wall", src, "-o", out]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=here)
+    os.close(fd)
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-Wall", src,
+           "-o", tmp]
     if verbose:
         print(" ".join(cmd))
-    subprocess.run(cmd, check=True)
+    try:
+        subprocess.run(cmd, check=True, capture_output=not verbose)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

@@ -3,7 +3,7 @@
 // The reference implements its host-side plumbing in C++ (mesh loading —
 // dbot SimpleWavefrontObjectModelLoader; depth image conversion —
 // dbot_ros ri::to_eigen; frame buffering — ObjectTrackerRos's queue).
-// These are the TPU-native equivalents, exposed with a C ABI consumed via
+// These are the native equivalents, exposed with a C ABI consumed via
 // ctypes (dbot_ros_tpu/native/__init__.py). The device compute path stays
 // JAX/XLA/Pallas; this library handles the parts that should never touch
 // the Python interpreter per frame: OBJ parsing at startup, uint16→float

@@ -1,8 +1,9 @@
 """Device-memory budgeting for particle configurations.
 
 Replaces ``dbot/gpu/buffer_configuration.h`` (D14): the reference checks
-GPU texture/memory limits and degrades the particle count to fit. The TPU
-analog estimates the HBM footprint of a tracker configuration (belief
+GPU texture/memory limits and degrades the particle count to fit. The
+analog here estimates the device-memory footprint of a tracker
+configuration (belief
 pytree + per-frame constants + kernel workspaces) against the chip's
 capacity and recommends the largest particle count that fits.
 """
@@ -54,13 +55,16 @@ def estimate_memory(num_particles: int, num_pixels: int,
 
 
 def device_memory_bytes(device=None) -> int:
-    """Best-effort HBM capacity of the (first) accelerator device."""
+    """Memory the (first) device's allocator may use, from its
+    ``memory_stats()["bytes_limit"]`` (on a GPU: the share of the card
+    this process reserved). Raises for a device that reports none."""
     d = device or jax.devices()[0]
-    stats = getattr(d, "memory_stats", lambda: None)()
-    if stats and "bytes_limit" in stats:
-        return int(stats["bytes_limit"])
-    # Fallback: assume a 16 GB-class chip (v5e) minus runtime reserve.
-    return 14 * 1024 ** 3
+    stats = d.memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        raise ValueError(
+            f"device {d} reports no memory limit; pass an explicit "
+            f"budget (estimate_memory) instead")
+    return int(stats["bytes_limit"])
 
 
 def max_particles(num_pixels: int, padded_triangles: int,
@@ -111,7 +115,7 @@ def rgf_pixel_stride(num_pixels: int, padded_triangles: int,
     The RGF's per-frame cost is the sigma-point raycast: (2·12K+1) sigma
     poses × pixels × triangles, repeated for each iterated update — with
     K objects and full pixels this grows without the PF's compaction
-    machinery (VERDICT r2 weak #8). Returns the smallest power-of-two
+    machinery. Returns the smallest power-of-two
     ``pixel_stride`` that keeps the estimated frame cost under
     ``budget_gflops`` (≈60 flops per ray-triangle test, exact-scan
     raycast — ops/raycast.py).

@@ -1,12 +1,12 @@
 """Deferred (candidate-set) raycast for large particle batches.
 
 The reference scales particle likelihoods by rasterizing every particle on
-a GPU (D12/D13: tiled FBO + CUDA). A direct TPU port of either approach is
-wrong-shaped: per-particle rasterization needs z-buffer scatter (hostile to
-XLA), and exhaustive ray×triangle testing is VPU-bound at
-O(P·N·T) ≈ 6·10¹¹ ops/frame for the 10k-particle north star (~2 Hz).
+a GPU (D12/D13: tiled FBO + CUDA). A direct port of either approach to
+XLA is wrong-shaped: per-particle rasterization needs z-buffer scatter,
+and exhaustive ray×triangle testing costs O(P·N·T) ≈ 6·10¹¹ ops/frame for
+the 10k-particle north star.
 
-TPU-native redesign — put the work on the MXU:
+Redesign — put the work into matrix products:
 
 1. **Reference pass** (once per frame): exact raycast at one reference pose
    (the belief mean) returning the *nearest triangle id* per pixel
@@ -21,10 +21,9 @@ TPU-native redesign — put the work on the MXU:
    With per-particle transformed constants G(p) (T × 10)
    (= [g_u | g_v | g_det | t_num], utils/mesh.py), the per-pixel
    constants are S_k @ G(p) — batched over particles this is
-   (N × T) @ (T × 10·P): an MXU-perfect contraction (K = T = padded
+   (N × T) @ (T × 10·P): one dense contraction (K = T = padded
    triangle count). Validity tests + depth-min over candidates are cheap
-   VPU elementwise ops. Total ≈ 2·N·T·10·P·K_sets MXU FLOPs — a few ms
-   for P = 10⁴ on one chip, versus seconds for the exhaustive path.
+   elementwise ops. Total ≈ 2·N·T·10·P·K_sets FLOPs.
 
 Exactness: a pixel whose true intersecting triangle (under a particle's
 pose) is outside its candidate set reads as miss/approximate — only
@@ -68,8 +67,9 @@ def raycast_ids(mesh: TriangleMesh, pose, rays, tri_chunk: int = 512):
     def body(carry, inp):
         zmin, idmin = carry
         (g, tn), chunk_idx = inp
+        # full f32 (the GPU's default f32 dot is TF32, ~mm at 1 m)
         nums = jnp.einsum("nd,md->nm", rays, g,
-                          precision=jax.lax.Precision.HIGH)
+                          precision=jax.lax.Precision.HIGHEST)
         nums = nums.reshape(N, tri_chunk, 3)
         t = raycast._intersect_from_numerators(
             nums[..., 0], nums[..., 1], nums[..., 2], tn[None, :])
@@ -151,20 +151,12 @@ def candidate_ids_dynamic(ids, height: int, width: int, spread_px,
     traced integer gather offsets, clipped at the image border — so
     coverage follows the belief at identical cost.
     """
-    # Everything below is a handful of CHEAP batched ops by design: the
-    # GF step is op-dispatch-bound on TPU (session 34 trace: ~3.7k
-    # device ops ≈ 17 ms of launch overhead — the compute is trivial),
-    # and this function runs once per object per IPLF iteration. Two
-    # formulations measured WORSE on hardware before this one:
-    #   * per-offset/per-slot Python loops — hundreds of ~37 µs
-    #     kernels (the original 17 ms floor's biggest block);
-    #   * fancy-index gathers + minor-axis take_along_axis — TPU
-    #     lowers each to a ~1 ms serial loop (session 34b/c traces:
-    #     1168 µs monsters, 2 per iteration).
-    # Hence: EDGE-PADDED DYNAMIC SLICES for the shifted id images (no
-    # gather), and a PAYLOAD-PACKED DOUBLE SORT for the per-pixel
-    # first-K-distinct fill (no take_along_axis — XLA's TPU sort is
-    # vectorized and fast; values ride inside the sort keys).
+    # Everything below is a handful of batched ops by design: the GF
+    # step is dominated by op count, not compute, and this function runs
+    # once per object per IPLF iteration. Hence EDGE-PADDED DYNAMIC
+    # SLICES for the shifted id images (no per-offset loops, no gather),
+    # and a PAYLOAD-PACKED DOUBLE SORT for the per-pixel first-K-distinct
+    # fill (no take_along_axis; values ride inside the sort keys).
     img = ids.reshape(height, width)
     spread = jnp.maximum(jnp.asarray(spread_px, jnp.float32), 1.0)
     pad = max(1, int(0.5 * max(height, width)))
@@ -221,11 +213,11 @@ def one_hot_selectors(cand, num_triangles: int):
 
 
 # ---------------------------------------------------------------------------
-# Per-particle candidate intersection (the MXU pass)
+# Per-particle candidate intersection (the matmul pass)
 # ---------------------------------------------------------------------------
 
 def deferred_depth(mesh: TriangleMesh, poses, rays, selectors,
-                   precision=jax.lax.Precision.HIGH, bary_slack=0.0,
+                   precision=jax.lax.Precision.HIGHEST, bary_slack=0.0,
                    barrier=False):
     """Depth for a particle batch via candidate one-hot matmuls.
 
@@ -233,6 +225,9 @@ def deferred_depth(mesh: TriangleMesh, poses, rays, selectors,
       poses: (P, 7).
       rays: (N, 3).
       selectors: (K, N, T) one-hot candidate selectors (one_hot_selectors).
+      precision: of the one-hot selection dot. HIGHEST (the default)
+        passes the f32 constants through unrounded; the GPU's default
+        f32 dot is TF32, which would round them to 10 mantissa bits.
       bary_slack: barycentric slack of the inside-test (candidate-coverage
         fix for sub-pixel faces — see FusedSensor.bary_slack).
     Returns:
@@ -245,27 +240,25 @@ def deferred_depth(mesh: TriangleMesh, poses, rays, selectors,
         [G.reshape(P, T, 9), t_num[..., None]], axis=-1)  # (P, T, 10)
     packed = packed.transpose(1, 0, 2).reshape(T, P * 10)
 
-    # All K candidate sets in ONE MXU contraction (a per-candidate
-    # Python loop costs K separate matmul+intersect kernel chains; the
-    # GF step that calls this is op-dispatch-bound — session 34 trace):
+    # All K candidate sets in ONE contraction (a per-candidate Python
+    # loop costs K separate matmul+intersect kernel chains; the GF step
+    # that calls this is dominated by op count):
     # (K·N, T) @ (T, 10P) → (K, N, P, 10).
     K, N, _ = selectors.shape
     S2 = selectors.reshape(K * N, T)
     if barrier:
         # Small-batch (sigma-point) callers: stop XLA from fusing the
-        # traced one-hot construction INTO the dot operand — fused, the
-        # contraction falls off the MXU into ~1 ms VPU fusions (the
-        # CLAUDE.md pack-matrix trap, re-measured session 34b). The PF
-        # deferred backend must NOT set this (the barrier there was a
-        # measured 200× regression — XLA's fusion is load-bearing at
-        # P = 10⁴).
+        # traced one-hot construction INTO the dot operand, which turns
+        # the contraction into large elementwise fusions. The PF deferred
+        # backend does not set it: at P = 10⁴ XLA's fusion there is
+        # load-bearing.
         S2, packed = jax.lax.optimization_barrier((S2, packed))
     sel = jnp.einsum("nt,tm->nm", S2, packed, precision=precision)
     sel = sel.reshape(K, N, P, 10)
     g = sel[..., :9].reshape(K, N, P, 3, 3)
     tn = sel[..., 9]                                      # (K, N, P)
     nums = jnp.einsum("nd,knpid->knpi", rays, g,
-                      precision=jax.lax.Precision.HIGH)
+                      precision=jax.lax.Precision.HIGHEST)
     t = raycast._intersect_from_numerators(
         nums[..., 0], nums[..., 1], nums[..., 2], tn, slack=bary_slack)
     return jnp.min(t, axis=0).T                           # (P, N)
@@ -278,11 +271,9 @@ def deferred_depth_gather(mesh: TriangleMesh, poses, rays, cand,
     :func:`deferred_depth`.
 
     The one-hot matmul formulation earns its keep at particle counts
-    (one (N,T)@(T,10P) MXU pass amortized over P ≈ 10⁴); at P ≈ 25
-    the traced one-hot selector instead FUSES INTO the dot operand and
-    falls off the MXU (the CLAUDE.md pack-matrix trap — measured as
-    ~19 ms of giant VPU fusions in the GF step, session 34b trace),
-    while the gather is a single HBM-bound op over K·N·10P floats.
+    (one (N,T)@(T,10P) pass amortized over P ≈ 10⁴); at P ≈ 25 the
+    traced one-hot selector instead fuses into the dot operand, while
+    the gather is a single bandwidth-bound op over K·N·10P floats.
 
     Args:
       cand: (N, K) candidate triangle ids; -1 = none (routed to the
@@ -302,7 +293,7 @@ def deferred_depth_gather(mesh: TriangleMesh, poses, rays, cand,
     g = sel[..., :9].reshape(N, K, P, 3, 3)
     tn = sel[..., 9]                                      # (N, K, P)
     nums = jnp.einsum("nd,nkpid->nkpi", rays, g,
-                      precision=jax.lax.Precision.HIGH)
+                      precision=jax.lax.Precision.HIGHEST)
     t = raycast._intersect_from_numerators(
         nums[..., 0], nums[..., 1], nums[..., 2], tn, slack=bary_slack)
     return jnp.min(t, axis=1).T                           # (P, N)
@@ -326,8 +317,8 @@ def make_sigma_renderer(meshes, rays, height: int, width: int,
     motion.
 
     This replaces the exact scan-over-triangles render of all 25 sigma
-    poses (VPU-bound, the GF's dominant cost — SURVEY §3.2 hot loop)
-    with 1 exact single-pose scan + MXU one-hot candidate matmuls:
+    poses (the GF's dominant cost — SURVEY §3.2 hot loop)
+    with 1 exact single-pose scan + one-hot candidate matmuls:
     per-sigma-render work drops by ~T/num_candidates (≈200× for the
     1408-triangle benchmark mesh). The reference shares its CPU
     renderer (D5) between both filters the same way the PF's deferred

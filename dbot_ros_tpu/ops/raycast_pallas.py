@@ -1,51 +1,53 @@
-"""Fused Pallas kernel: candidate raycast + beam likelihood + occlusion.
+"""Fused kernel: candidate raycast + beam likelihood + occlusion update.
 
 This is the D12+D13 replacement at full depth (SURVEY.md hard part #1):
 where the reference rasterizes every particle into a tiled GL texture and
 scores it with a CUDA kernel (round-tripping P×H×W depth through device
 memory), this kernel never materializes per-particle depth at all —
 
-    for each pixel (grid), for each candidate triangle (DMA'd slab of all
-    particles' transformed constants): intersect → min-depth → beam
-    densities → occlusion posterior → log-accumulate
+    for each (particle tile, pixel chunk) program, for each pixel of the
+    chunk, for each candidate triangle: load the tile's transformed
+    constants → intersect → min-depth → beam densities → occlusion
+    posterior → accumulate log p(z)
 
-everything staying in VMEM/registers. Inputs per frame:
+with every intermediate in registers. Inputs per frame:
 
   * ``gt``: (T, 10·Pr, 128) f32 — per-triangle slabs of every particle's
     transformed Möller–Trumbore constants (10 components × P particles,
-    lanes = particles). Built by XLA from utils/mesh constants (one small
-    batched matmul per frame).
+    particles contiguous). Built by XLA from utils/mesh constants (one
+    GEMM per frame).
   * candidate ids (Npad, K) int32 from the deferred reference pass
     (ops/deferred.py); -1 is pre-mapped to the guaranteed-degenerate last
     triangle row (det = 0 → miss).
-  * occlusion map transposed to pixel-major (Npad·Pr, 128).
+  * occlusion map in pixel-major kernel layout (Npad·Pr, 128): a pixel's
+    particles are contiguous, so a particle tile is one coalesced row
+    segment.
 
-Grid is 1-D over pixel blocks; per pixel the K candidate slabs stream
-HBM→VMEM with double-buffered async DMA (guide: Patterns/Double Buffering)
-while the previous pixel's ~100 VPU ops on (Pr, 128) particle tiles
-execute. Per-frame cost at the north star (P = 10k, N = 4800, K = 2):
-~4 GB DMA + ~5·10⁶ VPU-op-cycles ≈ 5 ms — ~40× the reference GPU's
-throughput per chip.
+The kernel is written for Pallas' Triton route. Its grid is (particle
+tiles × pixel chunks); nothing carries between programs: each program
+writes its chunk's partial log-likelihood row, and XLA sums the
+(n_chunks, P) partials — deterministic, no atomics. Programs load their
+pixels' candidate ids and rays themselves.
 
 The beam/occlusion math mirrors models/beam.py + models/image_loglik.py
 exactly, except the truncated-Gaussian normalizer is taken as 1 (erf-free;
 the truncation correction is < 1e-6 except within ~5σ of the sensor range
-limits). Tests compare against the XLA path at that tolerance.
+limits). :func:`fused_loglik_reference` is the same computation in plain
+``jnp`` — the kernel's test oracle.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from dbot_ros_tpu.models.beam import BeamParams
 from dbot_ros_tpu.models.occlusion import OcclusionParams
-from dbot_ros_tpu.ops import raycast
 from dbot_ros_tpu.utils.mesh import TriangleMesh
 
 _SQRT2PI = 2.5066282746310002
@@ -54,28 +56,46 @@ _DET_EPS = 1e-12
 _NEAR = 1e-4
 _BIG = 1e30
 
+# Kernel tiling (see fused_loglik_packed). A program covers
+# _LANE_BLOCK particles × _PIX_BLOCK pixels; particle padding rounds to
+# _LANE_BLOCK so tiles never need masks. Tuned on an H100 at 10k
+# particles (benchmarks/kernel_ab.py --tune): 256 lanes beat 128 and 512
+# at 2–4 warps; at the tight compaction level, which the operating point
+# runs every frame (448 px → 56 chunks × 40 tiles = 2240 programs),
+# 8 pixels per program with 4 warps and 2 stages had the lowest median.
+_LANE_BLOCK = 256
+_PIX_BLOCK = 8
+_NUM_WARPS = 4
+_NUM_STAGES = 2
+
 
 def _round_up(x, m):
     return (x + m - 1) // m * m
 
 
 def _particle_pads(num_particles: int):
-    """(p_pad, pr): the particle axis pads to 128 lanes × pr row-groups,
-    with pr rounded to the 8-sublane tile.
+    """(p_pad, pr): the particle axis pads to a multiple of the kernel's
+    particle tile (_LANE_BLOCK lanes), viewed as pr rows of 128."""
+    p_pad = _round_up(max(num_particles, 1), _LANE_BLOCK)
+    return p_pad, p_pad // 128
 
-    The 8-rounding became STRUCTURAL with bf16 occlusion storage
-    (session 22): Mosaic's packed (8, 128)(2, 1) bf16 tiling rejects
-    DMA slice shapes that are not sublane-tile multiples (the
-    scatter-merge's per-pixel (pr, 128) tiles, the lazy row gather), so
-    every dtype shares the aligned layout. Historical f32 context: on
-    the old *flat-indexed* kernel this pad measured +0.9 ms/frame
-    (session 21, 2.46 → 3.36 ms sensor-only, nonlinear); the session-22
-    kernel indexes a 3-D (nb, pr, 128) block on the untiled leading
-    axis instead, which re-measured at parity (see session22.log /
-    DESIGN.md) — and the halved bf16 traffic is the dominant term.
+
+def resolve_interpret(interpret):
+    """The Pallas interpreter runs only when a caller asks for it.
+
+    ``interpret=True`` → interpreter (any backend, e.g. CPU tests);
+    otherwise the kernel compiles for the GPU, and any other backend is
+    an error rather than a silent slow fallback.
     """
-    pr = _round_up(max(_round_up(num_particles, 128) // 128, 1), 8)
-    return pr * 128, pr
+    if interpret:
+        return True
+    backend = jax.default_backend()
+    if backend != "gpu":
+        raise ValueError(
+            f"the fused likelihood kernel compiles only for the GPU "
+            f"(JAX backend is {backend!r}); pass interpret=True to run it "
+            f"in the Pallas interpreter")
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -100,9 +120,9 @@ def pack_matrix(mesh: TriangleMesh):
         g_u'   = R g_u + τ × (R e2)      g_det' = R g_det
         g_v'   = R g_v − τ × (R e1)      t_num' = t_num + τ · (R g_det)
 
-    so pack = M·F — one MXU matmul per frame instead of a chain of
-    small einsums (which were HBM-bound at ~10 ms for the 10k-particle
-    north star; the matmul is bound by the 0.5 GB slab write, ~1 ms).
+    so pack = M·F — one GEMM per frame instead of a chain of small
+    einsums, bound by its own slab write (0.5 GB at 10k particles ×
+    1280 triangles).
 
     Feature indexing: f=0 constant; f=1+3i+j ↦ R[i,j];
     f=10+9a+3b+l ↦ τ[a]·R[b,l].
@@ -152,179 +172,166 @@ def pose_features(poses, p_pad: int):
     return F.T                                            # (37, Pp)
 
 
+def _pack_dot(M, features):
+    """(R, 37K) @ (37K, Pp) in full f32.
+
+    The barrier materializes both operands so the dot runs as one GEMM
+    on stored operands. HIGHEST keeps f32 products: the GPU's default
+    f32 dot is TF32 (10-bit mantissa), a ~mm geometry error at 1 m.
+    """
+    M, features = jax.lax.optimization_barrier((M, features))
+    return jnp.dot(M, features, precision=jax.lax.Precision.HIGHEST)
+
+
 def pack_constants(mesh: TriangleMesh, poses, p_pad: int, features=None,
                    M=None):
     """poses (P, 7) → (T, 10·Pr, 128) slabs, Pr = p_pad // 128.
 
     Slab rows: [g_u(3) | g_v(3) | g_det(3) | t_num] per component block of
-    Pr rows; lanes are particles. Padding particles have zero constants
-    (det = 0 → miss for every ray).
+    Pr rows; particles are contiguous. Padding particles have zero
+    constants (det = 0 → miss for every ray).
 
     One f32 matmul (10T, 37) @ (37, Pp) straight into the transposed
-    (triangle-major, particle-lanes) layout: the slab tensor is written
-    once, bound by its own HBM write.
+    (triangle-major, particle-minor) layout: the slab tensor is written
+    once.
 
     Pass a precomputed ``M`` (pack_matrix(mesh), static per mesh) in hot
-    paths: when M's construction is traced inline, XLA fuses it into the
-    dot operand and drops off the MXU path.
+    paths so its construction is not traced into every step.
     """
     T = mesh.padded_triangles
     if features is None:
         features = pose_features(poses, p_pad)
     if M is None:
         M = pack_matrix(mesh)
-    # The barrier forces both operands to materialize before the dot:
-    # producer fusions into dot operands measurably slowed the end-to-end
-    # step (caching M alone was worth 3.4 ms/step at the 10k north star);
-    # the barrier pins that behavior. HIGH = 3-pass bf16 (~2^-21
-    # relative) — micrometer geometry error at 1 m.
-    M, features = jax.lax.optimization_barrier(
-        (M.reshape(T * 10, 37), features))
-    packed = jnp.dot(M, features,
-                     precision=jax.lax.Precision.HIGH)     # (10T, Pp)
+    packed = _pack_dot(M.reshape(T * 10, 37), features)   # (10T, Pp)
     return packed.reshape(T, 10 * (p_pad // 128), 128)
+
+
+# ---------------------------------------------------------------------------
+# Per-pixel math, shared by the kernel and the plain reference
+# ---------------------------------------------------------------------------
+
+def _intersect(c, dx, dy, dz, slack):
+    """Candidate hit depth from its 10 constants (``c[i]`` broadcastable
+    arrays); _BIG = miss.
+
+    Barycentric slack: accept plane hits within ``slack`` of the triangle
+    footprint. When mesh faces are finer than the pixel grid, the
+    reference-pose id image structurally misses most of the triangles a
+    displaced particle's ray actually hits (8 % candidate coverage for a
+    6.7 mm shift at 10k particles, 80×60); the neighbor face's PLANE
+    approximates the surface to O(face²·curvature) ≪ beam σ, so the
+    slack restores coverage at no extra memory traffic.
+    """
+    u = c[0] * dx + c[1] * dy + c[2] * dz
+    v = c[3] * dx + c[4] * dy + c[5] * dz
+    det = c[6] * dx + c[7] * dy + c[8] * dz
+    tn = c[9]
+    sgn = jnp.sign(det)
+    adet = jnp.abs(det)
+    sa = slack * adet
+    valid = ((adet > _DET_EPS)
+             & (sgn * u >= -sa)
+             & (sgn * v >= -sa)
+             & (sgn * (u + v) <= adet + sa)
+             & (sgn * tn > _NEAR * adet))
+    return jnp.where(valid, tn / jnp.where(valid, det, 1.0), _BIG)
+
+
+def _pixel_update(t, z, occ, age, prm):
+    """Min candidate depth ``t`` → (log p(z), occlusion posterior).
+
+    ``prm`` indexes the (16,) parameter vector (make_params_vec); ``occ``
+    is the stored occlusion prior, ``age`` its lazy staleness in frames.
+    """
+    msig, sfac, wt, minz, maxz, lam = (prm(i) for i in range(6))
+    p_inv_occ, p_inv_vis, p_inv_bg, occ_pi = (prm(i) for i in range(6, 10))
+    inv_range, occ_lg, occ_dtf, occ_sgn = (prm(i) for i in range(11, 15))
+
+    on_sil = t < _BIG * 0.5
+    d = jnp.where(on_sil, t, 1.0)
+    z_real = z == z                                     # NaN-safe
+    z_valid = z_real & (z >= minz) & (z <= maxz)
+    zz = jnp.where(z_real, z, 1.0)
+
+    # Occlusion prior propagation (models/occlusion.py), lazily aged: the
+    # stored map may be `age` frames stale (pixels the compaction ladder
+    # skipped aren't rewritten — SURVEY hard part #3 without any full-map
+    # traffic); the chain is propagated by (age + dt) in one closed-form
+    # step, exactly equal to the eager per-frame recursion for g in [0, 1].
+    geff = occ_sgn * jnp.exp(occ_lg * (age + occ_dtf))
+    q = jnp.clip(occ_pi + geff * (occ - occ_pi), 0.0, 1.0)
+
+    # beam densities (models/beam.py, truncation normalizer ≈ 1)
+    sig = msig + sfac * d * d
+    zn = (zz - d) / sig
+    body_vis = jnp.exp(-0.5 * zn * zn) / (sig * _SQRT2PI)
+    lik_vis = jnp.where(
+        z_valid,
+        ((1.0 - wt) * body_vis + wt * inv_range) * (1.0 - p_inv_vis),
+        p_inv_vis)
+
+    d_eff = jnp.clip(d, minz, maxz)
+    span = jnp.maximum(d_eff - minz, 1e-6)
+    norm_occ = jnp.maximum(1.0 - jnp.exp(-lam * span), 1e-6)
+    body_occ = lam * jnp.exp(-lam * (zz - minz)) / norm_occ
+    in_front = z_valid & (zz <= d_eff)
+    lik_occ = jnp.where(
+        z_real,
+        ((1.0 - wt) * jnp.where(in_front, body_occ, 0.0)
+         + wt * jnp.where(z_valid, inv_range, 0.0))
+        * (1.0 - p_inv_occ),
+        p_inv_occ)
+
+    lik_bg = jnp.where(z_real,
+                       jnp.where(z_valid, inv_range, 0.0) * (1.0 - p_inv_bg),
+                       p_inv_bg)
+
+    p_on = (1.0 - q) * lik_vis + q * lik_occ
+    p_z = jnp.maximum(jnp.where(on_sil, p_on, lik_bg), _TINY)
+
+    occ_post = q * lik_occ / jnp.maximum(p_on, _TINY)
+    occ_post = jnp.where(on_sil, jnp.clip(occ_post, 0.0, 1.0), q)
+    return jnp.log(p_z), occ_post
 
 
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
 
-def _fused_kernel(cand_ref, z_ref, rays_ref, ages_ref, params_ref, occ_ref,
-                  gt_ref, occ_out_ref, ll_ref, slab, sems, *, nb: int,
-                  pr: int, K: int):
-    n_blk = pl.program_id(0)
+def _fused_kernel(cand_ref, pix_ref, params_ref, gt_ref, occ_ref,
+                  occ_out_ref, ll_ref, *, K: int, bn: int, bp: int):
+    """One program: particles [pt·bp, (pt+1)·bp) × pixels of chunk ch.
 
-    @pl.when(n_blk == 0)
-    def _():
-        ll_ref[:, :] = jnp.zeros_like(ll_ref)
+    Refs are whole arrays: cand (Npad, K) int32; pix (Npad, 8) f32 =
+    [ray x, y, z | z_obs | age | 0…]; params (16,); gt (10T, Pp);
+    occ / occ_out (Npad, Pp); ll (n_chunks, Pp) partial sums.
+    """
+    pt = pl.program_id(0)
+    ch = pl.program_id(1)
+    lanes = pl.ds(pl.multiple_of(pt * bp, bp), bp)
 
-    # params layout (see make_fused_sensor)
-    msig = params_ref[0, 0]
-    sfac = params_ref[0, 1]
-    wt = params_ref[0, 2]
-    minz = params_ref[0, 3]
-    maxz = params_ref[0, 4]
-    lam = params_ref[0, 5]
-    p_inv_occ = params_ref[0, 6]
-    p_inv_vis = params_ref[0, 7]
-    p_inv_bg = params_ref[0, 8]
-    occ_pi = params_ref[0, 9]
-    inv_range = params_ref[0, 11]
-    occ_lg = params_ref[0, 12]    # log|g| of the occlusion chain
-    occ_dtf = params_ref[0, 13]   # this call's dt in frame units
-    occ_sgn = params_ref[0, 14]   # sign(g); lazy ages require g >= 0
-    slack = params_ref[0, 15]     # barycentric slack (candidate coverage)
+    params = [params_ref[i] for i in range(16)]
+    prm = params.__getitem__
+    slack = params[15]
 
-    def dma(j, buf, k):
-        tid = cand_ref[j, k]
-        return pltpu.make_async_copy(gt_ref.at[tid], slab.at[buf, k],
-                                     sems.at[buf, k])
-
-    def start_all(j, buf):
+    def body(j, acc):
+        n = ch * bn + j
+        dx, dy, dz = pix_ref[n, 0], pix_ref[n, 1], pix_ref[n, 2]
+        t = None
         for k in range(K):
-            dma(j, buf, k).start()
+            row = cand_ref[n, k] * 10
+            tk = _intersect([gt_ref[row + c, lanes] for c in range(10)],
+                            dx, dy, dz, slack)
+            t = tk if t is None else jnp.minimum(t, tk)
+        occ = occ_ref[n, lanes].astype(jnp.float32)
+        logp, post = _pixel_update(t, pix_ref[n, 3], occ, pix_ref[n, 4],
+                                   prm)
+        occ_out_ref[n, lanes] = post.astype(occ_out_ref.dtype)
+        return acc + logp
 
-    start_all(0, 0)
-
-    def body(j, _):
-        buf = j % 2
-
-        @pl.when(j + 1 < nb)
-        def _():
-            start_all(j + 1, (j + 1) % 2)
-
-        for k in range(K):
-            dma(j, buf, k).wait()
-
-        dx = rays_ref[j, 0]
-        dy = rays_ref[j, 1]
-        dz = rays_ref[j, 2]
-        z = z_ref[j, 0]
-        z_valid = (z == z) & (z >= minz) & (z <= maxz)  # NaN-safe
-        zz = jnp.where(z == z, z, 1.0)
-
-        # --- intersect K candidates, min depth over candidates
-        t = jnp.full((pr, 128), _BIG, jnp.float32)
-        for k in range(K):
-            def comp(c):
-                return slab[buf, k, pl.ds(c * pr, pr), :]
-
-            u = comp(0) * dx + comp(1) * dy + comp(2) * dz
-            v = comp(3) * dx + comp(4) * dy + comp(5) * dz
-            det = comp(6) * dx + comp(7) * dy + comp(8) * dz
-            tn = comp(9)
-            sgn = jnp.sign(det)
-            adet = jnp.abs(det)
-            # Barycentric slack: accept plane hits within `slack` of the
-            # triangle footprint. When mesh faces are finer than the
-            # pixel grid, the reference-pose id image structurally
-            # misses most of the triangles a displaced particle's ray
-            # actually hits (measured 8 % candidate coverage at the
-            # north star for a 6.7 mm shift); the neighbor face's PLANE
-            # approximates the surface to O(face²·curvature) ≪ beam σ,
-            # so the slack restores coverage at zero extra DMA.
-            sa = slack * adet
-            valid = ((adet > _DET_EPS)
-                     & (sgn * u >= -sa)
-                     & (sgn * v >= -sa)
-                     & (sgn * (u + v) <= adet + sa)
-                     & (sgn * tn > _NEAR * adet))
-            tk = jnp.where(valid, tn / jnp.where(valid, det, 1.0), _BIG)
-            t = jnp.minimum(t, tk)
-
-        on_sil = t < _BIG * 0.5
-        d = jnp.where(on_sil, t, 1.0)
-
-        # --- occlusion prior propagation (models/occlusion.py), lazily
-        # aged: the stored map may be `age` frames stale (pixels the
-        # compaction ladder skipped aren't rewritten — SURVEY hard part
-        # #3 without any full-map traffic); the chain is propagated by
-        # (age + dt) in one closed-form step, exactly equal to the
-        # eager per-frame recursion for g in [0, 1].
-        # 3-D block: dynamic pixel index on the *untiled* leading dim —
-        # a dynamic sublane offset (flat j·pr) is not provably aligned
-        # for bf16's (16, 128) tiling and fails Mosaic on hardware
-        occ = occ_ref[j].astype(jnp.float32)
-        geff = occ_sgn * jnp.exp(occ_lg * (ages_ref[j, 0] + occ_dtf))
-        q = jnp.clip(occ_pi + geff * (occ - occ_pi), 0.0, 1.0)
-
-        # --- beam densities (models/beam.py, truncation normalizer ≈ 1)
-        sig = msig + sfac * d * d
-        zn = (zz - d) / sig
-        body_vis = jnp.exp(-0.5 * zn * zn) / (sig * _SQRT2PI)
-        lik_vis = jnp.where(
-            z_valid,
-            ((1.0 - wt) * body_vis + wt * inv_range) * (1.0 - p_inv_vis),
-            p_inv_vis)
-
-        d_eff = jnp.clip(d, minz, maxz)
-        span = jnp.maximum(d_eff - minz, 1e-6)
-        norm_occ = jnp.maximum(1.0 - jnp.exp(-lam * span), 1e-6)
-        body_occ = lam * jnp.exp(-lam * (zz - minz)) / norm_occ
-        in_front = z_valid & (zz <= d_eff)
-        lik_occ = jnp.where(
-            z == z,
-            ((1.0 - wt) * jnp.where(in_front, body_occ, 0.0)
-             + wt * jnp.where(z_valid, inv_range, 0.0))
-            * (1.0 - p_inv_occ),
-            p_inv_occ)
-
-        lik_bg = jnp.where(z == z,
-                           jnp.where(z_valid, inv_range, 0.0)
-                           * (1.0 - p_inv_bg),
-                           p_inv_bg)
-
-        p_on = (1.0 - q) * lik_vis + q * lik_occ
-        p_z = jnp.maximum(jnp.where(on_sil, p_on, lik_bg), _TINY)
-
-        occ_post = q * lik_occ / jnp.maximum(p_on, _TINY)
-        occ_post = jnp.where(on_sil, jnp.clip(occ_post, 0.0, 1.0), q)
-        occ_out_ref[j] = occ_post.astype(occ_out_ref.dtype)
-
-        ll_ref[:, :] += jnp.log(p_z)
-        return 0
-
-    jax.lax.fori_loop(0, nb, body, 0)
+    ll_ref[ch, lanes] = jax.lax.fori_loop(
+        0, bn, body, jnp.zeros((bp,), jnp.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -336,10 +343,9 @@ def occ_to_kernel(occ_pn, nb: int = 64):
 
     The kernel layout is pixel-major: row ``n·pr + c`` lane ``l`` holds
     particle ``c·128 + l`` of pixel ``n`` — i.e. a free reshape of the
-    padded (N, P) transpose. The pallas sensor keeps its occlusion state
-    in this layout ACROSS frames: converting every step costs a 192 MB
-    relayout whose copy chain destroys execution pipelining (measured 217
-    vs 16 ms per step at the 10k-particle north star).
+    padded (N, P) transpose. The fused sensor keeps its occlusion state
+    in this layout ACROSS frames: converting every step would add a
+    full-map transpose to every frame.
     """
     P, N = occ_pn.shape
     p_pad, pr = _particle_pads(P)
@@ -360,18 +366,14 @@ def grouped_lane_gather(q, idx, n_pad: int, pr: int):
     """``out[n, p'] = q[n, idx[p']]`` on the flat kernel layout.
 
     XLA lowers a minor-axis ``take`` on the (n_pad, p_pad) view to
-    transpose → gather → transpose — with the two view reshapes that is
-    FIVE full-map passes plus a cond-boundary copy (3.6 ms traced at the
-    10k north star, session 20). Systematic-resampling parents are
+    transpose → gather → transpose. Systematic-resampling parents are
     *sorted*, so each 128-lane output group draws from few consecutive
     source row-groups:
 
       * span 1 (the degenerate/ESS-collapse regime — every resample at
-        the tracked-object operating point): ONE native row gather
-        (rows move intact, no relayout; with ``pr`` a multiple of 8 the
-        (n_pad, pr, 128) view is a bitcast of the flat layout —
-        :func:`_particle_pads`) + one batched one-hot MXU contraction
-        for the intra-group lane permutation ≈ 4 map passes → ~1.6 ms;
+        the tracked-object operating point): ONE row gather (rows move
+        intact on the (n_pad, pr, 128) view) + one batched one-hot
+        contraction for the intra-group lane permutation;
       * span ≤ 2 (near-uniform weights): two-group variant;
       * larger spans (scattered weight clusters): exact fallback to the
         take path.
@@ -421,242 +423,42 @@ def grouped_lane_gather(q, idx, n_pad: int, pr: int):
     return chain(q)
 
 
-# Source-row-group window the routing kernel is built for; the caller's
-# span predicate MUST use the same constant (a wider span would silently
-# read outside the routing window and return wrong lineage data).
-LINEAGE_SPAN_CAP = 2
-
-
-def lineage_gather_pallas(q, idx, n_pad: int, pr: int,
-                          interpret: bool = False, nblk: int = 64,
-                          span_cap: int = LINEAGE_SPAN_CAP):
-    """Resampling lineage gather as ONE Pallas pass over the kernel layout.
-
-    ``out[n, r', m] = q[n, gb, lane]`` for parent ``idx[r'·128+m] =
-    gb·128 + lane`` on the (n_pad, pr, 128) view — the operation XLA's
-    minor-axis ``take`` lowers to transpose → gather → transpose (5
-    full-map passes, 3.6 ms at the 10k north star, session-20 trace).
-
-    Systematic-resampling parents are sorted, so each output 128-lane
-    group draws from a window of ≤ ``span_cap`` consecutive source
-    row-groups. The kernel streams, per (output group r', pixel block),
-    the window's source tiles and contracts each with a precomputed
-    one-hot routing matrix on the MXU:
-
-        out_tile = Σ_k  q[n_blk, glo[r']+k, :] @ E[r', k]   (bf16 → f32)
-
-    Traffic = (span+1)·map instead of 5·map, and the routing matrices
-    (pr·span·128·128, ~5 MB bf16) ride along the slow grid axis (r'
-    outer, pixel blocks inner → fetched once per r'). Exact for any
-    ``idx`` whose window fits; the caller falls back to ``take`` on the
-    (rare) wider-span frames via ``lax.cond``.
-    """
-    S = span_cap
-    gb = (idx // 128).reshape(pr, 128)
-    lane = (idx % 128).reshape(pr, 128)
-    glo = jnp.min(gb, axis=1).astype(jnp.int32)            # (pr,)
-    l_ar = jnp.arange(128, dtype=jnp.int32)
-    k_ar = jnp.arange(S, dtype=jnp.int32)
-    # E[r, k, l, m] = 1 iff output lane (r, m)'s parent is source lane
-    # (glo[r]+k, l); rows past the window get all-zero matrices.
-    hitg = gb[:, None, :] == glo[:, None, None] + k_ar[None, :, None]
-    E = (hitg[:, :, None, :]
-         & (lane[:, None, None, :] == l_ar[None, None, :, None]))
-    E = E.reshape(pr, S * 128, 128).astype(q.dtype)
-
-    # Flat (n_pad, p_pad) views: source/output 128-lane groups are
-    # *lane-dim blocks* whose offsets are multiples of 128 by
-    # construction — the only dynamic-index form Mosaic accepts for
-    # every dtype (a (·, 1, ·) middle-axis block would pad its 1-row
-    # tile to the sublane tiling and multiply the DMA traffic).
-    q2 = q.reshape(n_pad, pr * 128)
-    grid = (pr, n_pad // nblk)
-
-    def kern(glo_ref, *refs):
-        q_refs, E_ref, out_ref = refs[:S], refs[S], refs[S + 1]
-        acc = jnp.zeros((nblk, 128), jnp.float32)
-        for k in range(S):
-            Ek = E_ref[0, k * 128:(k + 1) * 128, :]
-            acc = acc + jnp.dot(q_refs[k][...], Ek,
-                                preferred_element_type=jnp.float32)
-        out_ref[...] = acc.astype(out_ref.dtype)
-
-    def q_spec(k):
-        return pl.BlockSpec(
-            (nblk, 128),
-            lambda r, n, glo_ref, k=k: (
-                n, jnp.minimum(glo_ref[r] + k, pr - 1)))
-
-    out = pl.pallas_call(
-        kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[q_spec(k) for k in range(S)] + [
-                pl.BlockSpec((1, S * 128, 128),
-                             lambda r, n, glo_ref: (r, 0, 0)),
-            ],
-            out_specs=pl.BlockSpec(
-                (nblk, 128), lambda r, n, glo_ref: (n, r)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_pad, pr * 128), q.dtype),
-        interpret=interpret,
-    )(glo, *([q2] * S), E)
-    return out.reshape(n_pad * pr, 128)
-
-
-def scatter_pixel_rows(q, vals, sel, pr: int, interpret: bool = False):
+def scatter_pixel_rows(q, vals, sel, pr: int):
     """In-place pixel-row scatter: ``q[sel[j]·pr:(sel[j]+1)·pr] =
     vals[j·pr:(j+1)·pr]`` for every selected pixel j.
 
-    A dynamic-output-index Pallas kernel: the scalar-prefetched ``sel``
-    drives the *output* BlockSpec, and ``input_output_aliases`` makes the
-    update truly in place — only the selected pixels' (pr, 128) tiles are
-    written (pcap·pr rows ≈ 16 MB at the 10k north star) instead of the
-    take+where merge's full-map read+read+write (two ops totalling
-    1.36 ms/frame in the v5e trace: the inverse row-gather fusion 0.51 ms
-    + the broadcast-select 0.85 ms). The unselected rows' closed-form
-    aging stays in the (n_pad,) age vector exactly as before — this
-    kernel only changes how the *written* rows land.
-
     ``sel`` entries must be distinct (they are: the compaction ladder's
-    selection ranks are a permutation prefix). XLA falls back to one
-    defensive copy if the ``q`` buffer is still live elsewhere; in the
-    sensor it is dead after the pre-kernel row gather, so the alias is
-    realized. Replaces the CUDA evaluator's in-place occlusion-array
-    writes (ref D13) without a scatter primitive (an XLA ``.at[rows].set``
-    scatter serializes: 2.75 ms/frame traced).
-
-    Implementation: pure HBM→HBM async DMAs with dynamic row offsets
-    (both buffers in ``ANY`` memory space — a (pr, 128) output *block*
-    would need pr % 8 == 0, which the pixel-major layout doesn't
-    guarantee), pipelined over an 8-deep semaphore ring. The buffers are
-    viewed 3-D (pixels, pr, 128) so each copy slices the *untiled*
-    leading dim — a flat ``ds(j·pr, pr)`` slice shape must be a multiple
-    of the sublane tiling for packed dtypes (bf16), which pr is not.
+    selection ranks are a permutation prefix). Each pixel's particle
+    tile is one contiguous row of the (pixels, Pp) view, so XLA scatters
+    whole rows; with ``q`` donated (the tracker's step donates the
+    belief) the update lands in place and only the selected rows are
+    written.
     """
-    pcap = vals.shape[0] // pr
-    nsem = 8
     n_pix = q.shape[0] // pr
-    q3 = q.reshape(n_pix, pr, 128)
-    vals3 = vals.reshape(pcap, pr, 128)
-
-    def kern(sel_ref, vals_ref, q_ref, out_ref, sems):
-        def cp(j):
-            return pltpu.make_async_copy(
-                vals_ref.at[j],
-                out_ref.at[sel_ref[j]],
-                sems.at[j % nsem])
-
-        def body(j, _):
-            @pl.when(j >= nsem)
-            def _():
-                cp(j - nsem).wait()
-            cp(j).start()
-            return 0
-
-        jax.lax.fori_loop(0, pcap, body, 0)
-
-        def tail(j, _):
-            cp(j).wait()
-            return 0
-
-        jax.lax.fori_loop(max(0, pcap - nsem), pcap, tail, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(1,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[pltpu.SemaphoreType.DMA((nsem,))],
-    )
-    out = pl.pallas_call(
-        kern, grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(q3.shape, q.dtype),
-        input_output_aliases={2: 0},
-        interpret=interpret)(sel.astype(jnp.int32), vals3, q3)
+    rows = vals.reshape(sel.shape[0], pr * 128)
+    out = q.reshape(n_pix, pr * 128).at[sel].set(
+        rows, unique_indices=True)
     return out.reshape(q.shape)
 
 
-def gather_pixel_rows(q, sel, pr: int, interpret: bool = False):
-    """Pixel-row GATHER: ``out[j·pr:(j+1)·pr] = q[sel[j]·pr:(sel[j]+1)·pr]``
-    — the read-side mirror of :func:`scatter_pixel_rows`.
-
-    The compaction pre-pass previously pulled the selected pixels' occ
-    tiles with a flat ``jnp.take`` over per-row indices; XLA lowers
-    that row gather to a ~27 GB/s loop (331 µs/step for a 9 MB slab at
-    the 10k north star — session-35 trace, ``fusion.5``). Here each
-    selected pixel's (pr, 128) tile moves as one HBM→HBM async DMA
-    with a scalar-prefetched dynamic *input* offset, pipelined on the
-    same 8-deep semaphore ring as the scatter. Duplicate/padded ``sel``
-    entries are harmless for a gather (unlike the scatter, which needs
-    distinct outputs). Same 3-D-view constraint: packed dtypes forbid
-    dynamic sublane offsets, so the copy slices the untiled pixel axis.
-    """
-    pcap = sel.shape[0]
-    nsem = 8
+def gather_pixel_rows(q, sel, pr: int):
+    """Pixel-row gather: ``out[j·pr:(j+1)·pr] = q[sel[j]·pr:(sel[j]+1)·pr]``
+    — the read-side mirror of :func:`scatter_pixel_rows`, one contiguous
+    (Pp,) row per selected pixel."""
     n_pix = q.shape[0] // pr
-    q3 = q.reshape(n_pix, pr, 128)
-
-    def kern(sel_ref, q_ref, out_ref, sems):
-        def cp(j):
-            return pltpu.make_async_copy(
-                q_ref.at[sel_ref[j]],
-                out_ref.at[j],
-                sems.at[j % nsem])
-
-        def body(j, _):
-            @pl.when(j >= nsem)
-            def _():
-                cp(j - nsem).wait()
-            cp(j).start()
-            return 0
-
-        jax.lax.fori_loop(0, pcap, body, 0)
-
-        def tail(j, _):
-            cp(j).wait()
-            return 0
-
-        jax.lax.fori_loop(max(0, pcap - nsem), pcap, tail, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(1,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[pltpu.SemaphoreType.DMA((nsem,))],
-    )
-    out = pl.pallas_call(
-        kern, grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((pcap, pr, 128), q.dtype),
-        interpret=interpret)(sel.astype(jnp.int32), q3)
-    return out.reshape(pcap * pr, 128)
+    out = jnp.take(q.reshape(n_pix, pr * 128), sel, axis=0)
+    return out.reshape(sel.shape[0] * pr, 128)
 
 
-def fused_loglik_packed(gt, occ_k, z_obs, cand, rays, params_vec,
-                        num_particles: int, nb: int = 64,
-                        interpret: bool = False, ages=None):
-    """Run the fused kernel on pre-packed constant slabs.
+def _kernel_inputs(gt, occ_k, z_obs, cand, rays, num_particles, nb, ages):
+    """Validate and pad the per-pixel inputs to the kernel's pixel grid.
 
-    Args:
-      gt: (T, 10·Pr, 128) packed slabs (pack_constants; multi-object =
-        concatenation of per-object slabs along the triangle axis).
-      occ_k: kernel-layout occlusion (occ_to_kernel).
-      z_obs: (N,); cand: (N, K) int32 global triangle ids with misses
-        already mapped to a degenerate row; rays: (N, 3).
-      params_vec: (16,) f32 (see make_fused_sensor).
-      ages: optional (N,) f32 per-pixel staleness of occ_k in frame
-        units (lazy aging — see FusedSensor); None = all fresh.
-    Returns (loglik (P,), occ_post in kernel layout).
+    Padding pixels carry z = NaN and the degenerate candidate, so each
+    contributes log p_invalid_background to every particle's loglik and
+    keeps its (aged) occlusion prior.
     """
-    P = num_particles
     N = z_obs.shape[0]
-    K = cand.shape[1]
-    p_pad, pr = _particle_pads(P)
+    p_pad, pr = _particle_pads(num_particles)
     if gt.shape[1] != 10 * pr:
         raise ValueError(
             f"gt slab rows {gt.shape[1]} != 10·Pr = {10 * pr}")
@@ -665,65 +467,87 @@ def fused_loglik_packed(gt, occ_k, z_obs, cand, rays, params_vec,
         raise ValueError(
             f"occ_k must be kernel layout {(n_pad * pr, 128)}, got "
             f"{occ_k.shape}; use occ_to_kernel")
-
-    z_in = jnp.pad(z_obs, (0, n_pad - N),
-                   constant_values=jnp.nan)[:, None]      # (Npad, 1)
-    rays_in = jnp.pad(rays, ((0, n_pad - N), (0, 1)))     # (Npad, 4)
-    cand_in = jnp.pad(cand, ((0, n_pad - N), (0, 0)),
+    age = (jnp.zeros((N,), jnp.float32) if ages is None
+           else ages.astype(jnp.float32))
+    pix = jnp.concatenate([
+        rays.astype(jnp.float32), z_obs.astype(jnp.float32)[:, None],
+        age[:, None], jnp.zeros((N, 3), jnp.float32)], axis=1)
+    pad = n_pad - N
+    pix = jnp.concatenate(
+        [pix, jnp.zeros((pad, 8), jnp.float32).at[:, 3].set(jnp.nan)])
+    cand_in = jnp.pad(cand.astype(jnp.int32), ((0, pad), (0, 0)),
                       constant_values=gt.shape[0] - 1)
-    if ages is None:
-        ages_in = jnp.zeros((n_pad, 1), jnp.float32)
-    else:
-        ages_in = jnp.pad(ages.astype(jnp.float32),
-                          (0, n_pad - N))[:, None]        # (Npad, 1)
-    params_in = params_vec.reshape(1, -1)
+    return (cand_in, pix, gt.reshape(-1, p_pad),
+            occ_k.reshape(n_pad, p_pad), p_pad, n_pad)
 
-    grid = (n_pad // nb,)
-    kernel = functools.partial(_fused_kernel, nb=nb, pr=pr, K=K)
+
+def fused_loglik_packed(gt, occ_k, z_obs, cand, rays, params_vec,
+                        num_particles: int, nb: int = 64,
+                        interpret=None, ages=None):
+    """Run the fused kernel on pre-packed constant slabs.
+
+    Args:
+      gt: (T, 10·Pr, 128) packed slabs (pack_constants; multi-object =
+        concatenation of per-object slabs along the triangle axis).
+      occ_k: kernel-layout occlusion (occ_to_kernel).
+      z_obs: (N,); cand: (N, K) int32 global triangle ids with misses
+        already mapped to a degenerate row; rays: (N, 3).
+      params_vec: (16,) f32 (see make_params_vec).
+      nb: pixel padding granularity of the occlusion layout.
+      interpret: True = Pallas interpreter; otherwise compiled for the
+        GPU (see resolve_interpret).
+      ages: optional (N,) f32 per-pixel staleness of occ_k in frame
+        units (lazy aging — see FusedSensor); None = all fresh.
+    Returns (loglik (P,), occ_post in kernel layout).
+    """
+    interpret = resolve_interpret(interpret)
+    cand_in, pix, gt2, occ2, p_pad, n_pad = _kernel_inputs(
+        gt, occ_k, z_obs, cand, rays, num_particles, nb, ages)
+    bn = math.gcd(nb, _PIX_BLOCK)
+    n_chunks = n_pad // bn
+    kernel = functools.partial(_fused_kernel, K=cand.shape[1], bn=bn,
+                               bp=_LANE_BLOCK)
     occ_out, ll = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((nb, K), lambda n: (n, 0),
-                         memory_space=pltpu.SMEM),        # cand
-            pl.BlockSpec((nb, 1), lambda n: (n, 0),
-                         memory_space=pltpu.SMEM),        # z
-            pl.BlockSpec((nb, 4), lambda n: (n, 0),
-                         memory_space=pltpu.SMEM),        # rays
-            pl.BlockSpec((nb, 1), lambda n: (n, 0),
-                         memory_space=pltpu.SMEM),        # ages
-            pl.BlockSpec((1, 16), lambda n: (0, 0),
-                         memory_space=pltpu.SMEM),        # params
-            pl.BlockSpec((nb, pr, 128), lambda n: (n, 0, 0),
-                         memory_space=pltpu.VMEM),        # occ (pixel-major)
-            pl.BlockSpec(memory_space=pl.ANY),            # gt (HBM)
-        ],
-        out_specs=[
-            pl.BlockSpec((nb, pr, 128), lambda n: (n, 0, 0),
-                         memory_space=pltpu.VMEM),        # occ_post
-            pl.BlockSpec((pr, 128), lambda n: (0, 0),
-                         memory_space=pltpu.VMEM),        # loglik accum
-        ],
+        grid=(p_pad // _LANE_BLOCK, n_chunks),
         out_shape=[
             # occ posterior keeps the stored dtype (bf16 storage halves
-            # every occ-touching HBM pass; the kernel computes in f32)
-            jax.ShapeDtypeStruct((n_pad, pr, 128), occ_k.dtype),
-            jax.ShapeDtypeStruct((pr, 128), jnp.float32),
+            # every occ-touching pass; the kernel computes in f32)
+            jax.ShapeDtypeStruct((n_pad, p_pad), occ_k.dtype),
+            jax.ShapeDtypeStruct((n_chunks, p_pad), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((2, K, 10 * pr, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, K)),
-        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=_NUM_STAGES),
         interpret=interpret,
-    )(cand_in, z_in, rays_in, ages_in, params_in,
-      occ_k.reshape(n_pad, pr, 128), gt)
+        name="fused_loglik",
+    )(cand_in, pix, params_vec.astype(jnp.float32), gt2, occ2)
+    loglik = jnp.sum(ll, axis=0)[:num_particles]
+    return loglik, occ_out.reshape(occ_k.shape)
 
-    loglik = ll.reshape(p_pad)[:P]
-    return loglik, occ_out.reshape(n_pad * pr, 128)
+
+def fused_loglik_reference(gt, occ_k, z_obs, cand, rays, params_vec,
+                           num_particles: int, nb: int = 64, ages=None):
+    """:func:`fused_loglik_packed` in plain ``jnp`` (same inputs, same
+    padding, same outputs) — the oracle the kernel is tested against."""
+    cand_in, pix, gt2, occ2, p_pad, n_pad = _kernel_inputs(
+        gt, occ_k, z_obs, cand, rays, num_particles, nb, ages)
+    T = gt2.shape[0] // 10
+    g = jnp.take(gt2.reshape(T, 10, p_pad), cand_in, axis=0)  # (n,K,10,Pp)
+    col = [pix[:, c, None] for c in range(5)]                 # (n, 1) each
+    t = None
+    for k in range(cand_in.shape[1]):
+        tk = _intersect([g[:, k, c] for c in range(10)], col[0], col[1],
+                        col[2], params_vec[15])
+        t = tk if t is None else jnp.minimum(t, tk)
+    logp, post = _pixel_update(t, col[3], occ2.astype(jnp.float32),
+                               col[4], lambda i: params_vec[i])
+    loglik = jnp.sum(logp, axis=0)[:num_particles]
+    return loglik, post.astype(occ_k.dtype).reshape(occ_k.shape)
 
 
 def fused_loglik(mesh: TriangleMesh, poses, occ_k, z_obs, cand, rays,
-                 params_vec, nb: int = 64, interpret: bool = False):
+                 params_vec, nb: int = 64, interpret=None):
     """Single-object convenience wrapper: pack + run the fused kernel.
 
     ``cand`` is (N, K) int32 with -1 already mapped to the degenerate
@@ -746,7 +570,7 @@ def make_params_vec(bp: BeamParams, op: OcclusionParams, dt_frames,
     enables lazy aging for g >= 0, the physical regime).
 
     ``bary_slack`` relaxes the candidate inside-test by that many
-    barycentric units (see the kernel comment; FusedSensor.bary_slack).
+    barycentric units (see _intersect; FusedSensor.bary_slack).
     """
     g = op.p_occluded_occluded - op.p_occluded_visible
     pi = op.p_occluded_visible / jnp.maximum(1.0 - g, 1e-12)
@@ -789,8 +613,11 @@ class FusedSensor:
     full kernel for oversized silhouettes. Exact at every level: the
     background constant is added back and the propagated occlusion is
     written elementwise. A reference-class scene (hand-held object,
-    ~1–10 % frame fill) hits the tight level — measured 2.9× over the
-    uncompacted kernel at the 10k-particle north star (v5e).
+    ~1–10 % frame fill) hits the tight level.
+
+    ``interpret``: True runs the kernel in the Pallas interpreter (CPU
+    tests); otherwise it compiles for the GPU and any other backend
+    raises (resolve_interpret).
     """
 
     def __init__(self, meshes, camera, bp, op, frame_rate=30.0,
@@ -813,7 +640,7 @@ class FusedSensor:
                 levels = [(1.0 / 12.0, 0.2), (0.5, 0.75)]
         self.levels = [(float(a), float(t)) for a, t in levels]
         # Static per-mesh pack matrices, concrete at trace time (see
-        # pack_constants: inline construction defeats the MXU dot).
+        # pack_constants: not rebuilt inside every traced step).
         self._pack_M = [jax.device_put(pack_matrix(m)) for m in self.meshes]
         K = len(self.meshes)
         blocks = []
@@ -832,18 +659,17 @@ class FusedSensor:
         # flip-aware recovery races) is bimodal, and candidates built
         # around its mean cover a ghost pose between the modes — the
         # race is then decided by candidate-coverage noise, not
-        # likelihood (measured on-chip: a π-flip won a 10k-particle
-        # recovery race the exact XLA sensor resolves correctly,
-        # session 33). With R > 1 the reference pass renders R
+        # likelihood (a π-flip won a 10k-particle recovery race the
+        # exact XLA sensor resolves correctly). With R > 1 the reference
+        # pass renders R
         # index-strided particles per object (systematic hypothesis
         # seeding allocates contiguous blocks, so strides hit every
         # mode) and min-combines all id images; the tracker uses an
         # R=4 sensor for the first frames after a hypothesis init.
         self.reference_poses = int(reference_poses)
         self.nb = nb
-        self.interpret = (jax.default_backend() != "tpu"
-                          if interpret is None else interpret)
-        if lineage_gather not in ("grouped", "windowed", "take", "pallas"):
+        self.interpret = resolve_interpret(interpret)
+        if lineage_gather not in ("grouped", "windowed", "take"):
             raise ValueError(f"unknown lineage_gather: {lineage_gather!r}")
         self.lineage_gather = lineage_gather
         if merge not in ("scatter", "select"):
@@ -872,9 +698,9 @@ class FusedSensor:
         self._fx = float(jnp.asarray(camera.camera_matrix)[0, 0])
         # Occlusion storage dtype. The kernel always computes in f32;
         # the stored (n_pad·Pr, 128) map is the single biggest buffer
-        # the step touches (~194 MB at the 10k north star in f32), and
-        # every hot pass over it — kernel read+write, the resample
-        # lineage take, exchange permutes — is HBM-bandwidth-bound.
+        # the step touches (~197 MB at 10k particles × 4800 px in f32),
+        # and every hot pass over it — kernel read+write, the resample
+        # lineage take, exchange permutes — is memory-bandwidth-bound.
         # bf16 halves all of them; an occlusion probability is a
         # smoothed [0, 1] latent, so the ~0.4 % relative quantization is
         # far below the beam model's noise (bf16-vs-f32 tracking parity
@@ -917,7 +743,7 @@ class FusedSensor:
     def particle_stride(self, num_particles: int) -> int:
         """Padded lane count of a ``num_particles`` block — the index
         stride exchange code must use for concat results (_particle_pads
-        rounds row-groups to 8 past 1024 lanes)."""
+        rounds to the kernel's particle tile)."""
         return self._pads(num_particles)[0]
 
     def gather_occlusion(self, occ_k, parent_idx, num_in=None):
@@ -926,18 +752,13 @@ class FusedSensor:
         ``lineage_gather`` modes:
 
           * ``"take"`` (default): the plain XLA lane gather on the
-            (n_pad, p_pad) view. Costs 3.6 ms at the 10k north star
-            (XLA lowers the minor-axis gather as transpose → gather →
-            transpose — session-20 trace) but measured FASTER end to
-            end than both alternatives;
+            (n_pad, p_pad) view;
           * ``"grouped"``: :func:`grouped_lane_gather` — flat-layout
-            row gather + one-hot MXU contraction with a span ladder;
-            measured 6.65 vs 5.93 ms always-resample (the ladder conds
-            re-introduce cond-boundary copies) — kept for layouts/
-            hardware where the transpose lowering is worse;
+            row gather + one-hot contraction with a span ladder, kept
+            for A/B;
           * ``"windowed"``: ops.resample.windowed_lane_gather (aligned
-            slab + one-hot MXU per 128-lane block) — measured slower
-            end-to-end (8.91 vs 5.93 ms always-resample), kept for A/B.
+            slab + one-hot contraction per 128-lane block), kept for
+            A/B.
 
         ``num_in`` (optional): total source LANES when gathering from a
         foreign source (the distributed exchanges' concat'd surplus
@@ -958,38 +779,7 @@ class FusedSensor:
         idx_full = jnp.concatenate(
             [parent_idx.astype(jnp.int32), pad_idx])
         same = num_in is None
-        if self.lineage_gather == "pallas" and same:
-            # one-pass MXU routing kernel for the (sorted-parents)
-            # bounded-window case; exact take fallback otherwise.
-            # Pad lanes map to the LAST REAL PARENT, not identity:
-            # identity pads sit in the top row-groups and would blow the
-            # span check in exactly the ESS-collapse regime the kernel
-            # targets (parents one low column, pads at pr-1) — their
-            # content is arbitrary, only finiteness matters.
-            idx_full = jnp.concatenate([
-                parent_idx.astype(jnp.int32),
-                jnp.broadcast_to(parent_idx[-1].astype(jnp.int32),
-                                 (p_pad_out - p_out,))])
-            gb = idx_full // 128
-            span = jnp.max(gb.reshape(pr_out, 128)
-                           - jnp.min(gb.reshape(pr_out, 128), axis=1,
-                                     keepdims=True)) + 1
-            nblk = next(b for b in (256, 128, 64, 32, 16, 8, 4, 2, 1)
-                        if n_pad % b == 0)
-
-            def fast(q):
-                return lineage_gather_pallas(q, idx_full, n_pad, pr_out,
-                                             interpret=self.interpret,
-                                             nblk=nblk)
-
-            def slow(q):
-                view = q.reshape(n_pad, p_pad_in)
-                return jnp.take(view, idx_full, axis=1,
-                                mode="clip").reshape(n_pad * pr_out, 128)
-
-            out = jax.lax.cond(span <= LINEAGE_SPAN_CAP, fast,
-                               slow, occ_k)
-        elif self.lineage_gather == "grouped" and same:
+        if self.lineage_gather == "grouped" and same:
             out = grouped_lane_gather(occ_k, idx_full, n_pad, pr_out)
         elif self.lineage_gather == "windowed" and same:
             view = occ_k.reshape(n_pad, p_pad_in)
@@ -1103,7 +893,6 @@ class FusedSensor:
         """Static kernel-pixel budget for one level (None = no compaction)."""
         if frac >= 1.0:
             return None
-        import math
         cap = _round_up(int(math.ceil(num_pixels * frac)), self.nb)
         return None if cap >= num_pixels else cap
 
@@ -1117,7 +906,6 @@ class FusedSensor:
         """
         if frac >= 1.0:
             return None
-        import math
         cap = _round_up(
             int(math.ceil(self.union_triangles * frac)), 8)
         return None if cap >= self.union_triangles else cap
@@ -1133,8 +921,7 @@ class FusedSensor:
 
         One matmul (10·tcap, 37K) @ (37K, Pp): each union triangle's
         coefficient rows live in its object's 37-feature block, so a
-        K-object scene still packs in a single MXU contraction (37K ≤ 128
-        up to K = 3 — no extra MXU cost over one object).
+        K-object scene still packs in a single GEMM.
         """
         K = len(self.meshes)
         tcap = uniq.shape[0]
@@ -1143,11 +930,7 @@ class FusedSensor:
         F_all = jnp.concatenate(
             [pose_features(states[:, k, :7], p_pad)
              for k in range(K)], axis=0)                  # (37K, Pp)
-        # barrier: materialize the gathered/concatenated operands before
-        # the dot (see pack_constants)
-        M_sel, F_all = jax.lax.optimization_barrier((M_sel, F_all))
-        packed = jnp.dot(M_sel, F_all,
-                         precision=jax.lax.Precision.HIGH)
+        packed = _pack_dot(M_sel, F_all)
         return packed.reshape(tcap, 10 * (p_pad // 128), 128)
 
     def __call__(self, states, occ_k, z_obs, dt):
@@ -1156,9 +939,7 @@ class FusedSensor:
         raw kernel-layout array (legacy/eager semantics: every pixel's
         occlusion is propagated and rewritten each frame). With lazy
         aging the compaction ladder's common path touches ONLY the
-        selected pixels' rows — no full-map propagate/merge/relayout
-        (which cost ~2.1 ms/frame of the 4.4 ms sensor at the 10k north
-        star, traced v5e).
+        selected pixels' rows — no full-map propagate/merge/relayout.
         """
         from dbot_ros_tpu.models import occlusion as occ_mod
 
@@ -1208,12 +989,10 @@ class FusedSensor:
         if not caps:
             return full(occ_k)
 
-        # Compaction bookkeeping, sort- and scatter-free: TPU sorts are
-        # O(log²)-pass lane shuffles and scatters serialize — both were
-        # multi-hundred-µs items in the per-frame trace. The selection is
-        # instead expressed as cumsum ranks + blocked-rank searchsorted
+        # Compaction bookkeeping, sort- and scatter-free: the selection
+        # is expressed as cumsum ranks + blocked-rank searchsorted
         # (ops/resample.sorted_searchsorted_left) over the (ascending)
-        # cumsums — dense VPU work only.
+        # cumsums — dense elementwise work only.
         from dbot_ros_tpu.ops import resample as _rs
         if any(p is not None for p, _ in caps):
             active = jnp.any(cand != deg, axis=1)
@@ -1272,9 +1051,8 @@ class FusedSensor:
 
             if tcap is not None:
                 # Slot lookup: every id in `cand` is present, so the
-                # dense cumsum rank covers all lookups (searchsorted
-                # would be a 1.8 ms/frame while-loop binary search;
-                # the previous scatter-built inverse serialized too).
+                # dense cumsum rank covers all lookups (no search or
+                # scatter-built inverse).
                 inv = jnp.clip(inv_dense, 0, tcap - 1)
 
             def branch(occ):
@@ -1300,16 +1078,12 @@ class FusedSensor:
                           + (n_pad - N) * log_pib
                           - (n_pad_c - pcap) * log_pib)
                 if lazy:
-                    # DMA-gather ONLY the selected pixels' q tiles (the
-                    # kernel layout keeps a pixel's particle tile in pr
-                    # consecutive rows); unselected pixels just age.
-                    # gather_pixel_rows replaces the flat jnp.take row
-                    # gather XLA ran at ~27 GB/s (331 µs/step at the
-                    # 10k north star — session-35 trace).
+                    # Gather ONLY the selected pixels' q rows (the
+                    # kernel layout keeps a pixel's particles in one
+                    # contiguous row); unselected pixels just age.
                     n_pix_q = q_k.shape[0] // pr
                     occ_sel = gather_pixel_rows(
-                        q_k, jnp.clip(sel, 0, n_pix_q - 1), pr,
-                        interpret=self.interpret)
+                        q_k, jnp.clip(sel, 0, n_pix_q - 1), pr)
                     ll, occ_post = fused_loglik_packed(
                         gt, occ_sel, z_obs[sel],
                         jnp.take(cand_use, sel, axis=0),
@@ -1320,17 +1094,13 @@ class FusedSensor:
                     age_out = jnp.where(selm, 0.0, age + dtf)
                     if self.merge == "scatter":
                         # In-place row scatter of ONLY the selected
-                        # pixels' tiles (scatter_pixel_rows) — the
-                        # take+where merge below costs 1.36 ms/frame of
-                        # full-map traffic at the 10k north star.
-                        q_out = scatter_pixel_rows(
-                            q_k, occ_post, sel, pr,
-                            interpret=self.interpret)
+                        # pixels' rows (scatter_pixel_rows) — the
+                        # take+where merge below reads and writes the
+                        # full map.
+                        q_out = scatter_pixel_rows(q_k, occ_post, sel, pr)
                         return ll + scalar, (q_out, age_out)
                     # "select" merge (kept for A/B): inverse row gather
-                    # + fused select, one clean full-map write — still
-                    # far cheaper than an XLA .at[rows].set scatter
-                    # (2.75 ms/frame traced on v5e). slot/selm come
+                    # + fused select, one full-map write. slot/selm come
                     # straight from the dense selection rank.
                     slot = jnp.pad(jnp.clip(slot_dense, 0, pcap - 1),
                                    (0, n_pad - N))
@@ -1368,7 +1138,7 @@ class FusedSensor:
 def make_fused_sensor(meshes, camera, bp: BeamParams, op: OcclusionParams,
                       frame_rate: float = 30.0, num_candidates: int = 2,
                       radius: int = 2, nb: int = 64,
-                      interpret: bool = None,
+                      interpret=None,
                       active_cap_frac: float = None,
                       tri_cap_frac: float = None,
                       levels=None,
@@ -1382,7 +1152,8 @@ def make_fused_sensor(meshes, camera, bp: BeamParams, op: OcclusionParams,
 
     Accepts one mesh or a list of per-object meshes (multi-object scenes
     share the kernel via the union triangle list — see FusedSensor).
-    interpret defaults to True off-TPU so tests run on the CPU backend.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (the CPU
+    tests); otherwise it compiles for the GPU (resolve_interpret).
     ``levels``: compaction ladder as (pixel_frac, triangle_frac) pairs,
     tightest first (default ``[(1/12, 0.2), (0.5, 0.75)]``); the legacy
     ``active_cap_frac``/``tri_cap_frac`` pair defines a single level.

@@ -45,13 +45,11 @@ def kl_to_uniform(log_w):
 def sorted_searchsorted_left(cdf, pos):
     """``searchsorted(cdf, pos, side='left')`` — blocked-rank, sort-free.
 
-    ``jnp.searchsorted`` lowers to a while-loop binary search that costs
-    ~1.9 ms for 10k elements on TPU v5e (fixed per-iteration sync
-    overhead; traced in the filter step), and the earlier merged-sort
-    formulation still paid a 2(N+M)-element multi-operand ``lax.sort``
-    (TPU sorts are O(log²) lane-shuffle passes). Since ``cdf`` is already
-    sorted, the rank decomposes exactly into dense VPU work with no sort
-    and no scatter:
+    ``jnp.searchsorted`` lowers to a while-loop binary search (one
+    sequential iteration per bit), and a merged-sort formulation pays a
+    2(N+M)-element multi-operand ``lax.sort``. Since ``cdf`` is already
+    sorted, the rank decomposes exactly into dense elementwise work with
+    no sort and no scatter:
 
       * split ``cdf`` into 128-wide blocks; a block contributes all 128
         elements iff its *last* element < pos (block maxima are the
@@ -105,21 +103,20 @@ def multinomial_indices(key, log_w, num_samples: int):
 
 
 def windowed_lane_gather(view, par, windows=(256, 1024), sanitize=False):
-    """``out[:, j] = view[:, par[j]]`` — a lane-axis gather tuned for TPU.
+    """``out[:, j] = view[:, par[j]]`` — a windowed minor-axis gather.
 
-    XLA lowers a gather along the minor (lane) axis of a large array to a
-    transpose-bound loop (measured 4.5 ms for (4800, 10112) f32 on v5e —
-    the entire resampling overhead of the fused-sensor filter step, see
-    CLAUDE.md perf notes). Systematic resampling, however, produces
+    XLA may lower a gather along the minor axis of a large array to
+    transpose → gather → transpose. Systematic resampling, however,
+    produces
     *sorted* parent indices (ops/resample.systematic_indices), so within
     each 128-lane output block the parents span a narrow contiguous
     window. This exploits that:
 
       * per 128-lane output block, take one contiguous ``dynamic_slice``
-        of ``W`` source lanes (a plain copy, HBM-bandwidth bound) and
-        apply the block's permutation as a one-hot (W, 128) MXU matmul —
+        of ``W`` source lanes (a plain copy, bandwidth bound) and
+        apply the block's permutation as a one-hot (W, 128) matmul —
         exact for finite values (one-hot operand; HIGHEST precision
-        pinned so the f32 values pass through the MXU unrounded);
+        pinned so the f32 values pass through unrounded, never TF32);
       * a ladder of window sizes (like the fused kernel's compaction
         ladder): the smallest window whose span fits runs; pathological
         spans (e.g. multinomial/unsorted parents) fall back to the exact
@@ -176,11 +173,9 @@ def windowed_lane_gather(view, par, windows=(256, 1024), sanitize=False):
     pb = par.reshape(-1, 128)
     lo = jnp.min(pb, axis=1)
     hi = jnp.max(pb, axis=1)
-    # All window starts are rounded DOWN to a lane-tile (128) boundary:
-    # an unaligned lane-axis dynamic_slice forces per-row lane rotations
-    # (measured ~6x off the copy roofline on v5e); aligned slices are
-    # plain tile copies. A window w therefore covers a block iff the
-    # block's parents fit in [align(lo), align(lo) + w).
+    # All window starts are rounded DOWN to a 128-lane boundary, so
+    # every slice starts on an aligned block. A window w therefore covers
+    # a block iff the block's parents fit in [align(lo), align(lo) + w).
     lo_al = (lo // 128) * 128
     span_al = jnp.max(hi - lo_al) + 1          # per-block, aligned
     g0 = (jnp.min(lo) // 128) * 128
@@ -190,7 +185,7 @@ def windowed_lane_gather(view, par, windows=(256, 1024), sanitize=False):
         return jnp.take(view, par, axis=1, mode="clip")
 
     def make_global(w):
-        """One aligned slab + one (w, Co) one-hot MXU dot for the whole
+        """One aligned slab + one (w, Co) one-hot dot for the whole
         map — the degenerate/low-ESS regime (all parents in one narrow
         range), where per-block slabs would re-read the same lanes."""
         start = jnp.minimum(g0, C - w)

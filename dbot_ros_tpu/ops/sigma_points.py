@@ -3,7 +3,7 @@
 Replaces ``fl/filter/gaussian/transform/unscented_transform.hpp`` and
 ``sigma_point_quadrature.hpp`` (F2): sigma points are generated in the
 12-dim tangent space of the 13-dim pose-velocity state (utils/se3 boxplus/
-boxminus), so the quaternion stays on the manifold — the TPU-native analog
+boxminus), so the quaternion stays on the manifold — the batched analog
 of the reference's Euler-vector-chart sigma points.
 
 All returns are batched arrays; the 2n+1 = 25 sigma points ride a leading

@@ -4,13 +4,14 @@
 
 The reference's only scaling axis is GPU-tile data parallelism over
 particles inside one process (D12-D14). Here particles shard across a
-``jax.sharding.Mesh`` axis ("p" — ICI within a slice); the whole filter
+``jax.sharding.Mesh`` axis ("p" — the cards of one host, joined all to
+all by NVLink on an H100 machine); the whole filter
 step runs under ``shard_map`` with explicit collectives:
 
   * likelihood evaluation: embarrassingly parallel per shard (the compute-
     dominant term — scaling efficiency lives here);
   * weight normalization / ESS / KL trigger: ``psum`` of shard-local
-    logsumexp partials over ICI;
+    logsumexp partials;
   * systematic resampling: ``all_gather`` of the (tiny: P floats) weight
     vector → identical global parent indices on every shard → each shard
     materializes its slice of offspring, fetching parent *state* via an
@@ -29,9 +30,10 @@ trigger fires — identical semantics to the single-device
 
 Multi-scene batching (P7) composes on a second mesh axis:
 :func:`make_multi_scene_step` runs S independent scenes on a 2-D
-``Mesh(("host", "chip"))`` — scenes data-parallel over "host" (DCN-safe:
-zero cross-scene collectives), particles over "chip" (ICI collectives
-only) — the SURVEY §7 layer-8 layout. The same code runs multi-process
+``Mesh(("host", "chip"))`` — scenes data-parallel over "host" (zero
+cross-scene collectives, so the axis may span hosts), particles over
+"chip" (all per-frame collectives) — the SURVEY §7 layer-8 layout. The
+same code runs multi-process
 under ``jax.distributed`` (tests/test_multihost.py drives 2 CPU
 processes × 4 virtual devices each through it).
 """
@@ -63,13 +65,14 @@ def make_particle_mesh(n_devices: int = None, axis: str = "p") -> Mesh:
 
 def make_scene_mesh(n_scene: int, n_particle: int,
                     axis_names=("host", "chip")) -> Mesh:
-    """2-D mesh: scenes/objects on the first (DCN) axis, particles on the
-    second (ICI) axis — SURVEY.md §7 layer 8's ``Mesh(("host","chip"))``.
+    """2-D mesh: scenes/objects on the first axis, particles on the
+    second — SURVEY.md §7 layer 8's ``Mesh(("host","chip"))``.
 
-    On a multi-host pod slice ``jax.devices()`` orders devices host-major,
-    so the reshape puts whole hosts on the scene axis: the particle
-    collectives (psum/ppermute every frame) ride ICI while the scene axis
-    carries no collectives at all (pure data parallelism → DCN-safe).
+    Across hosts ``jax.devices()`` orders devices host-major, so the
+    reshape puts whole hosts on the scene axis: the particle collectives
+    (psum/ppermute every frame) stay among one host's cards (all to all
+    over NVLink on an H100 machine) while the scene axis carries no
+    collectives at all (pure data parallelism across the network).
     """
     devs = jax.devices()
     need = n_scene * n_particle
@@ -185,7 +188,7 @@ def _psum_mean_state(states, w, axis, power_iters=12):
     Linear part by psum; per-object quaternion mean as the principal
     eigenvector of the psum'd 4×4 outer-product matrix by power iteration
     (see se3.states_mean — eigh on tiny matrices is disproportionately
-    slow under jit on TPU).
+    slow under jit).
     """
     lin = jax.lax.psum(jnp.einsum("p,pkd->kd", w, states), axis)
     q = states[..., 3:7]                                     # (P, K, 4)
@@ -212,10 +215,8 @@ def _resample_block(states, log_w, occ, old_loglik, *, do, ln, k_res,
     (see make_distributed_step's docstring).
 
     The KL trigger ``do`` is NOT a ``lax.cond`` over the belief: a cond
-    whose operands include the occlusion map costs ~4.3 ms/step of
-    cond-boundary full-map copies at the 10k north star (DESIGN.md
-    anti-pattern #1 — measured again distributed in session 23: 8.21 ms
-    vs 3.90 plain on an axis-size-1 mesh). Instead the parent vector is
+    whose operands include the occlusion map adds cond-boundary full-map
+    copies (DESIGN.md anti-pattern #1). Instead the parent vector is
     ``where``-selected between systematic parents and the global
     identity, and the gathers/collectives run unconditionally — on
     no-resample frames every exchange reduces to an identity gather and
@@ -346,7 +347,8 @@ def _resample_block(states, log_w, occ, old_loglik, *, do, ln, k_res,
         #     gated on `do`, so no-resample frames ship empty buffers
         #     and the final merge select keeps the local gather.
         #
-        # ICI traffic ∝ distinct parents moved, not P. Frames whose hop
+        # Interconnect traffic ∝ distinct parents moved, not P. Frames
+        # whose hop
         # span or distinct-parent count overflow run the exact full
         # ring via a rare occ-only cond — skipped at trace time when
         # (capacity, max_hops) make overflow impossible.
@@ -464,14 +466,13 @@ def _make_step_local(loglik_fn, trans_params, dt, max_kl_divergence,
             log_w = log_w + loglik - old_loglik
             old_loglik = loglik
 
-            # --- global weight stats (psum over ICI)
+            # --- global weight stats (psum over the particle axis)
             lse, s2, kl, p_total = _global_log_normalizers(log_w, axis)
             ln = log_w - lse
 
             # --- KL-triggered global systematic resampling. NOT a
             # lax.cond over the belief (DESIGN.md anti-pattern #1 —
-            # cond-boundary copies cost ~4.3 ms/step at the 10k north
-            # star): the trigger rides into _resample_block as a
+            # cond-boundary copies of the occlusion map): the trigger rides into _resample_block as a
             # where-select on the parent indices, and the gathers +
             # collectives run unconditionally in uniform order.
             k_res = jax.random.fold_in(k_res_base, b)
@@ -519,7 +520,7 @@ def make_distributed_step(mesh: Mesh, loglik_fn: Callable,
         parent list from the all_gather'd weights (P floats), compacts
         the *distinct* rows that neighbor needs from it into a
         ``capacity``-row surplus buffer, and ships only those buffers
-        (one ppermute per hop, ≤ ``max_hops`` each way). ICI traffic is
+        (one ppermute per hop, ≤ ``max_hops`` each way). Traffic is
         (2·max_hops+1)·capacity rows instead of the ring's S·L —
         proportional to particles actually moved. Frames whose hop span
         or distinct-parent count overflow fall back to the exact full
@@ -570,7 +571,7 @@ def make_distributed_step(mesh: Mesh, loglik_fn: Callable,
 
 
 # ---------------------------------------------------------------------------
-# 2-D mesh: scenes on "host" (DCN), particles on "chip" (ICI)
+# 2-D mesh: scenes on "host", particles on "chip"
 # ---------------------------------------------------------------------------
 
 def init_multi_scene_belief(key, initial_poses, num_scenes: int,
@@ -639,8 +640,9 @@ def make_multi_scene_step(mesh: Mesh, loglik_fn: Callable,
     Each scene runs the full distributed RBC-PF over the particle axis
     (psum normalization, KL-triggered exchange resampling); the scene
     axis carries **no collectives** — scenes are pure data parallelism,
-    so the step scales across hosts at DCN-insensitive efficiency (north
-    star #3). Runs unchanged under ``jax.distributed`` with the scene
+    so the step scales across hosts independent of the network between
+    them (north star #3). Runs unchanged under ``jax.distributed``
+    with the scene
     axis spanning processes (tests/test_multihost.py).
 
     Note: the per-block resampling path is cond-free (where-selected
@@ -715,8 +717,7 @@ def make_island_step(mesh: Mesh, loglik_fn: Callable,
       * only when the *island* weights degenerate (KL over n_islands
         exceeds ``island_max_kl``) are whole island blocks exchanged —
         a block-regular collective (all_gather + select of equal-size
-        blocks), far rarer than particle-level resampling and perfectly
-        shaped for ICI.
+        blocks), far rarer than particle-level resampling.
 
     Posterior queries (mean state, ESS) weight island-locally-normalized
     particles by the island weights via psum — exact, cheap.

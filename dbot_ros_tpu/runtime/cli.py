@@ -250,7 +250,7 @@ def _add_sim_args(p):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="dbot_ros_tpu",
-        description="TPU-native depth-based object tracking")
+        description="depth-based Bayesian object tracking")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_track = sub.add_parser("track", help="track a recorded sequence")
@@ -303,6 +303,9 @@ def main(argv=None):
     p_rec.set_defaults(fn=cmd_record)
 
     args = parser.parse_args(argv)
+    from dbot_ros_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     return args.fn(args)
 
 

@@ -132,8 +132,7 @@ def find_initial_pose(depth, mesh: TriangleMesh, camera: CameraModel,
     # (ref D14, ops/budget.xla_tri_chunk): the refine generations score
     # beam×particles ≈ 2k poses at once, and the default 512-chunk scan
     # intermediate is then (2k, N, 512) f32 ≈ 20 GB at the production
-    # 80×60 frame — measured OOM (28.4 GB requested of 15.75 GB HBM)
-    # during an on-chip watchdog re-init, session 33.
+    # 80×60 frame, more than a device holds.
     from dbot_ros_tpu.ops.budget import xla_tri_chunk
 
     def score(poses):
@@ -425,8 +424,8 @@ def initialize_tracker(tracker, depth, hypothesis_margin: float = 30.0,
     a single hypothesis, reproducing the plain init exactly.
 
     ``min_hypotheses``: keep at least this many top beams per object
-    even when the margin filter passes fewer — flip-aware RECOVERY
-    (VERDICT r4 item 4): a locked-in wrong basin can score the search
+    even when the margin filter passes fewer — flip-aware RECOVERY:
+    a locked-in wrong basin can score the search
     argmax decisively on one frame, so a watchdog re-init passes 2 and
     lets the GF's multi-hypothesis trial (or the PF's mixture) race the
     flip against the alternative over the next frames instead of

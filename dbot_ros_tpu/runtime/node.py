@@ -47,7 +47,7 @@ class TrackRun:
         symmetry groups (None entries = exact metric). Errors for an
         object with a group are reported modulo that group
         (se3.rotation_error_symmetric) — a box flipped by its own
-        symmetry is NOT an error (VERDICT r3 item 5).
+        symmetry is NOT an error.
         """
         if self.ground_truth is None:
             return None
@@ -186,7 +186,7 @@ def run(tracker, source, initial_pose=None,
             # watchdog re-arms and retries on a later frame.
             from dbot_ros_tpu.runtime.initializer import initialize_tracker
             try:
-                # flip-aware recovery (VERDICT r4 item 4): a re-init
+                # flip-aware recovery: a re-init
                 # after a lock-in must race ≥2 beam hypotheses — the
                 # wrong basin can win the single-frame search argmax
                 initialize_tracker(tracker, frame.depth,

@@ -5,7 +5,7 @@ tracker nodes — most notably an object-finding service used for
 detection-assisted (re-)initialization (SURVEY.md §2 M3,
 ``dbot_ros_msgs/srv``) — plus the implicit controls a human operator has
 over a node (re-drag the RViz marker, restart the node). With no ROS bus,
-the TPU-native runtime replaces that surface with a newline-delimited-JSON
+this runtime replaces that surface with a newline-delimited-JSON
 control channel on a Unix domain socket, served by a background thread and
 drained by ``node.run`` between frames (commands mutate the tracker only
 on the loop thread — the device step stays single-owner, P4).

@@ -105,8 +105,8 @@ class OracleSource:
                  dropout_prob: float = 0.0, dropout_frames=None,
                  edge_artifacts: float = 0.0, edge_threshold: float = 0.03,
                  quantize_mm: bool = False):
-        """Extra realism knobs (SURVEY §4 acceptance tier; VERDICT r3
-        item 7 — Kinect-class artifact models):
+        """Extra realism knobs (SURVEY §4 acceptance tier —
+        Kinect-class artifact models):
 
           * ``edge_artifacts``: probability that a pixel adjacent to a
             depth discontinuity (> ``edge_threshold`` m vs a 4-neighbor)

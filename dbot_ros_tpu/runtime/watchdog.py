@@ -35,8 +35,8 @@ class WatchdogConfig:
     beta_min: float = 0.05              # GF inlier-rate floor
     # Catastrophic GF loss debounce: a teleported / fully-lost Gaussian
     # filter's inlier rate collapses to near the clutter floor but
-    # OSCILLATES around it (session 33j: beta 0.032-0.083 for 15 frames
-    # after an on-chip teleport — every poke above 0.05 reset the
+    # OSCILLATES around it (measured: beta 0.032-0.083 for 15 frames
+    # after a teleport — every poke above 0.05 reset the
     # consecutive-frame beta_min streak, and detection fell through to
     # the 15-frame lock-in tier, a 14-frame latency). Healthy tracking
     # sits at 0.83-0.98 and even wrong-basin lock-in at 0.40-0.52, so

@@ -74,11 +74,11 @@ class GaussianTracker:
         meshes_ = self.meshes
         single = self._single
 
-        # Sigma-point render backend (VERDICT r4 item 1): "deferred"
+        # Sigma-point render backend: "deferred"
         # (default) routes the 25 sigma renders through the candidate
-        # one-hot MXU pass (ops/deferred.make_sigma_renderer) — the
+        # one-hot matmul pass (ops/deferred.make_sigma_renderer) — the
         # exact scan runs once per iteration at the mean only; "exact"
-        # is the full VPU scan-over-triangles for every sigma pose
+        # is the full scan-over-triangles for every sigma pose
         # (the oracle path, and the fallback for unusual meshes).
         if config.sigma_backend == "deferred":
             from dbot_ros_tpu.ops.deferred import make_sigma_renderer
@@ -109,7 +109,7 @@ class GaussianTracker:
             if config.occlusion_memory else None)
         frame_rate = float(config.camera.frame_rate)
 
-        # dt is a TRACED argument (VERDICT r4 item 3): a drop-heavy live
+        # dt is a TRACED argument: a drop-heavy live
         # stream (ThreadedSource drop-oldest) must scale transition noise
         # AND the occlusion-chain propagation by the real frame interval
         # (ref D7 dt-aware transitions, R5 timestamp tracking) — distinct
@@ -190,7 +190,7 @@ class GaussianTracker:
         rate — is the race metric: a near-symmetric flip can explain
         ~97 % of predicted-object pixels (beta race ties) yet carries a
         persistent depth-gradient misfit the per-pixel mixture density
-        integrates over frames (VERDICT r4 item 4; fixes the flip
+        integrates over frames (fixes the flip
         re-lock observed in watchdog recovery).
         ``trial_switch_margin`` is in nats/frame.
 

@@ -80,7 +80,7 @@ class ParticleTracker:
         self._dt = 1.0 / config.camera.frame_rate
         # Donating the belief lets XLA reuse its buffers (the occlusion
         # map alone is ~P·N·4 bytes) instead of allocating fresh ones
-        # every frame. dt is a TRACED argument (VERDICT r4 item 3):
+        # every frame. dt is a TRACED argument:
         # drop-heavy streams pass the real frame interval — transition
         # noise and the occlusion chain scale with it (ref D7 dt-aware
         # transitions); distinct dt values do not retrace.
@@ -100,8 +100,8 @@ class ParticleTracker:
         # occlusion chain RESET to its initial prior. Racing on the
         # filter's own mean_loglik launders: the D10 chain is the PF's
         # world model, and within ~4 frames it marks a wrong basin's
-        # persistent misfit pixels as occluded — measured on-chip
-        # (session 33): a π-flip's per-frame marginal overtook the
+        # persistent misfit pixels as occluded — measured: a π-flip's
+        # per-frame marginal overtook the
         # correct basin's exactly as the chain saturated. Same failure
         # family as the GF's background laundering (learn_world).
         def _pose_score(mean_state, z_obs):
@@ -154,7 +154,7 @@ class ParticleTracker:
         — a 9-nat search-noise gap gives its particles e⁻⁹ relative
         weight, so a π-flip that happened to win the single-frame
         search argmax swallowed the whole cloud in ONE step (measured
-        at 256 and 10k particles, session 33). Islands protect each
+        at 256 and 10k particles). Islands protect each
         basin from cross-hypothesis resampling while evidence
         accumulates — the PF analog of the Gaussian tracker's
         multi-hypothesis trial, and the island-model machinery of

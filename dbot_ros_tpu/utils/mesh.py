@@ -27,7 +27,7 @@ Under a rigid transform ``x ↦ R x + τ`` the constants update affinely:
     t_num' = t_num + τ · (R g_det)
 
 so the per-particle setup is a handful of small matmuls over triangles
-(MXU-friendly), not a re-render.
+(matmul-friendly), not a re-render.
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ def _round_up(n: int, m: int) -> int:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class TriangleMesh:
-    """A single rigid object's triangle mesh, padded for TPU tiling.
+    """A single rigid object's triangle mesh, triangle count padded to a
+    multiple of ``pad_to`` (static shapes across meshes of similar size).
 
     Padding triangles are fully degenerate (all vertices 0) → ``g_det = 0`` →
     ``det = 0`` for every ray → never a hit; no masks needed downstream.
@@ -227,7 +228,7 @@ def tagged_l_mesh(center: bool = True, pad_to: int = 128,
     REMAINING near-symmetry. The two-box L is asymmetric on paper, but
     a π rotation about its in-plane diagonal swaps the 12 cm and 8 cm
     legs into a silhouette only ~9 nats distinguishable from the true
-    pose at 0.55 m / 80×60 (measured, session 33) — identical to the
+    pose at 0.55 m / 80×60 (measured) — identical to the
     box's symmetry-quotient situation but APPROXIMATE, so neither the
     exact quotient metric nor a likelihood race can treat it cleanly.
     The tag box on the long leg's top face makes every π-twin cost

@@ -1,6 +1,6 @@
 """Batched SE(3) / SO(3) algebra on JAX arrays.
 
-TPU-native replacement for the reference pose substrate
+Batched replacement for the reference pose substrate
 (``dbot/include/dbot/pose/pose_vector.h`` — ``PoseVector``/``EulerVector``/
 ``PoseVelocityVector``): instead of Eigen block-vector classes, poses are plain
 arrays with a trailing structure axis, and every function maps over arbitrary
@@ -273,7 +273,7 @@ def states_mean(states, weights=None):
     Position/velocity: arithmetic mean. Orientation: chordal mean via the
     weighted outer-product eigenvector method (Markley), which is exact for
     the quaternion L2 chordal metric and robust to sign ambiguity — the
-    TPU-friendly analog of the reference's ``SumOfDeltas::mean()``.
+    batched analog of the reference's ``SumOfDeltas::mean()``.
     """
     if weights is None:
         n = states.shape[0]
@@ -310,8 +310,8 @@ def box_symmetry_quats(include_identity: bool = True):
     extents): {identity, pi about x, pi about y, pi about z}.
 
     A plain-quaternion rotation error is meaningless against a box —
-    the pose is only identifiable up to this group (VERDICT r3 item 5:
-    without the quotient, two-object box RMSE mixes genuine error with
+    the pose is only identifiable up to this group (without the
+    quotient, two-object box RMSE mixes genuine error with
     symmetry aliasing).
     """
     quats = [jnp.array([1.0, 0.0, 0.0, 0.0])] if include_identity else []

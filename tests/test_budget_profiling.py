@@ -17,21 +17,43 @@ def test_estimate_scales_linearly_in_particles():
     assert e1.belief_bytes == 1000 * 13 * 4 + 1000 * 4 + 1000 * 4800 * 4
 
 
+class _Card:
+    """A device as a JAX GPU process reports it: 60 GB = three quarters
+    of an 80 GB card, the share the allocator reserves by default."""
+
+    def memory_stats(self):
+        return {"bytes_limit": 60 * 1024 ** 3}
+
+
+class _NoStats:
+    def memory_stats(self):
+        return None
+
+
 def test_max_particles_fits_budget():
-    mp = budget.max_particles(4800, 1408, backend="pallas")
+    card = _Card()
+    mp = budget.max_particles(4800, 1408, backend="pallas", device=card)
     est = budget.estimate_memory(mp, 4800, 1408, backend="pallas")
-    assert est.total_bytes <= budget.device_memory_bytes() * 0.6
+    assert est.total_bytes <= budget.device_memory_bytes(card) * 0.6
     # and the next doubling would not fit
     est2 = budget.estimate_memory(mp * 2, 4800, 1408, backend="pallas")
-    assert est2.total_bytes > budget.device_memory_bytes() * 0.6
+    assert est2.total_bytes > budget.device_memory_bytes(card) * 0.6
     assert mp >= 10_000  # the north-star config fits comfortably
 
 
 def test_check_fit_warns_when_oversized():
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        budget.check_fit(1 << 21, 4800, 1408)
+        budget.check_fit(1 << 21, 4800, 1408, device=_Card())
         assert any("HBM" in str(x.message) for x in w)
+
+
+def test_device_memory_requires_reported_limit():
+    """No guessed capacity: a device without a memory limit (the CPU)
+    is an error, not a default."""
+    assert budget.device_memory_bytes(_Card()) == 60 * 1024 ** 3
+    with pytest.raises(ValueError, match="no memory limit"):
+        budget.device_memory_bytes(_NoStats())
 
 
 def test_stopwatch_and_measure(capsys):

@@ -123,3 +123,6 @@ def test_example_configs_parse():
     gc = cfg.load_config(os.path.join(root, "gaussian_tracker.yaml"))
     assert isinstance(gc, cfg.GaussianTrackerConfig)
     assert gc.occlusion_memory and gc.update_iterations == 6
+    # the JSON twins (no pyyaml needed) hold the same configurations
+    assert cfg.load_config(os.path.join(root, "particle_tracker.json")) == pc
+    assert cfg.load_config(os.path.join(root, "gaussian_tracker.json")) == gc

@@ -350,7 +350,7 @@ def test_rgf_occlusion_memory_tracks_occluder_pixels():
 # ------------------------------------------- deferred sigma-render backend
 
 def test_sigma_renderer_matches_exact():
-    """make_sigma_renderer (candidate MXU pass, the GF hot-path backend)
+    """make_sigma_renderer (candidate matmul pass, the GF hot-path backend)
     must agree with the exact scan on a sigma-like pose batch: hits where
     both hit carry identical depths (slack=0 ⇒ candidate hits are a
     subset of exact hits), and candidate-coverage misses are rare at the

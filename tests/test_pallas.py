@@ -1,4 +1,6 @@
-"""Fused Pallas kernel vs the XLA reference path (interpret mode on CPU)."""
+"""Fused kernel vs the XLA reference path (Pallas interpreter on the CPU)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -191,6 +193,7 @@ def test_fused_backend_tracking_two_objects():
     meshes = [l_shape_mesh(), box_mesh(0.05, 0.08, 0.04)]
     config = cfg.ParticleTrackerConfig(
         evaluation_count=128, max_kl_divergence=0.8, backend="pallas",
+        backend_options=dict(interpret=True),
         observation=cfg.ObservationConfig(model_sigma=0.005,
                                           sigma_factor=0.0),
         transition=cfg.TransitionConfig(0.4, 2.0, damping=4.0), seed=3)
@@ -376,6 +379,7 @@ def test_fused_backend_tracking():
     cam, mesh, bp, op, ref, poses, z_obs, occ0 = setup()
     config = cfg.ParticleTrackerConfig(
         evaluation_count=128, max_kl_divergence=0.8, backend="pallas",
+        backend_options=dict(interpret=True),
         observation=cfg.ObservationConfig(model_sigma=0.005,
                                           sigma_factor=0.0),
         transition=cfg.TransitionConfig(0.4, 2.0, damping=4.0), seed=3)
@@ -393,26 +397,40 @@ def test_fused_backend_tracking():
     assert result.position_rmse() < 0.02, result.position_rmse()
 
 
-def test_scatter_pixel_rows_kernel():
-    """The in-place DMA row scatter: selected pixels' tiles replaced,
-    everything else untouched (incl. pr not divisible by 8)."""
+@pytest.mark.parametrize("pr", [1, 2, 3])
+def test_scatter_pixel_rows_kernel(pr):
+    """The XLA row merge: selected pixels' rows replaced, everything
+    else untouched, in place under donation."""
     from dbot_ros_tpu.ops.raycast_pallas import scatter_pixel_rows
 
-    for pr in (3, 8):
-        n_pix = 10
-        q = jnp.arange(n_pix * pr * 128, dtype=jnp.float32).reshape(
-            n_pix * pr, 128)
-        vals = -(1.0 + jnp.arange(4 * pr * 128,
-                                  dtype=jnp.float32)).reshape(4 * pr, 128)
-        sel = jnp.array([7, 0, 3, 9], dtype=jnp.int32)
-        out = np.asarray(jax.jit(
-            lambda q, v, s: scatter_pixel_rows(q, v, s, pr,
-                                               interpret=True))(
-            q, vals, sel))
-        exp = np.asarray(q).copy()
-        for j, s in enumerate([7, 0, 3, 9]):
-            exp[s * pr:(s + 1) * pr] = np.asarray(vals)[j * pr:(j + 1) * pr]
-        np.testing.assert_array_equal(out, exp)
+    n_pix = 10
+    q = jnp.arange(n_pix * pr * 128, dtype=jnp.float32).reshape(
+        n_pix * pr, 128)
+    vals = -(1.0 + jnp.arange(4 * pr * 128,
+                              dtype=jnp.float32)).reshape(4 * pr, 128)
+    sel = jnp.array([7, 0, 3, 9], dtype=jnp.int32)
+    exp = np.asarray(q).copy()
+    for j, s in enumerate([7, 0, 3, 9]):
+        exp[s * pr:(s + 1) * pr] = np.asarray(vals)[j * pr:(j + 1) * pr]
+    out = np.asarray(jax.jit(
+        lambda q, v, s: scatter_pixel_rows(q, v, s, pr),
+        donate_argnums=(0,))(q, vals, sel))
+    np.testing.assert_array_equal(out, exp)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_gather_pixel_rows(dtype):
+    """The XLA row gather: out row j = q row sel[j], duplicates allowed."""
+    from dbot_ros_tpu.ops.raycast_pallas import gather_pixel_rows
+
+    pr, n_pix = 2, 9
+    q = jnp.arange(n_pix * pr * 128).reshape(n_pix * pr, 128).astype(dtype)
+    sel = jnp.array([8, 2, 2, 0, 5], dtype=jnp.int32)
+    out = np.asarray(jax.jit(lambda q, s: gather_pixel_rows(q, s, pr))(
+        q, sel).astype(jnp.float32))
+    qn = np.asarray(q.astype(jnp.float32))
+    exp = np.concatenate([qn[s * pr:(s + 1) * pr] for s in [8, 2, 2, 0, 5]])
+    np.testing.assert_array_equal(out, exp)
 
 
 def test_merge_modes_equivalent():
@@ -444,7 +462,7 @@ def test_merge_modes_equivalent():
 @pytest.mark.parametrize("pattern", ["identity", "systematic", "degenerate",
                                      "scattered"])
 def test_grouped_lane_gather_matches_take(pattern):
-    """The grouped (row-gather + one-hot MXU) lineage gather must equal
+    """The grouped (row-gather + one-hot matmul) lineage gather must equal
     the plain lane take for every parent pattern — including the
     span-overflow fallback ('scattered')."""
     from dbot_ros_tpu.ops.raycast_pallas import (grouped_lane_gather,
@@ -521,35 +539,6 @@ def test_bf16_occlusion_storage_parity():
     par = jnp.arange(64, dtype=jnp.int32)[::-1]
     g = s16.gather_occlusion(o16, par)
     assert s16._unpack_occ(g)[0].dtype == jnp.bfloat16
-
-
-def test_pallas_lineage_gather_matches_take():
-    """The one-pass MXU routing gather (lineage_gather='pallas') must be
-    bit-equal to the take path for sorted systematic parents (span <= 2)
-    and fall back to take for scattered parents (span > 2)."""
-    cam, mesh, bp, op, ref, poses, z_obs, occ0 = setup(P=96)
-    s_p = make_fused_sensor(mesh, cam, bp, op, interpret=True,
-                            lineage_gather="pallas")
-    s_t = make_fused_sensor(mesh, cam, bp, op, interpret=True,
-                            lineage_gather="take")
-    states = jnp.zeros((96, 1, 13)).at[:, 0, :7].set(poses)
-    occ = s_p.init_occlusion(96, 0.1)
-    _, occ = s_p(states, occ, z_obs, 1.0 / 30.0)
-
-    key = jax.random.PRNGKey(3)
-    sorted_par = jnp.sort(
-        jax.random.randint(key, (96,), 0, 96)).astype(jnp.int32)
-    scattered = jax.random.permutation(key, 96).astype(jnp.int32)
-    degenerate = jnp.full((96,), 41, jnp.int32)
-    for par in (sorted_par, degenerate, scattered):
-        a = s_p.gather_occlusion(occ, par)
-        b = s_t.gather_occlusion(occ, par)
-        # compare real particles only — pad-lane content is arbitrary
-        # and intentionally differs (pallas maps pads to the last real
-        # parent to keep the span window tight)
-        np.testing.assert_array_equal(
-            np.asarray(s_p.occlusion_as_pn(a, 96)),
-            np.asarray(s_t.occlusion_as_pn(b, 96)))
 
 
 def test_multi_reference_candidates_match_on_unimodal_cloud():
@@ -637,3 +626,196 @@ def test_island_trial_resolves_twin_pallas():
     assert tracker.trial_active is None     # trial committed
     err = run.rotation_errors()[-1, 0]
     assert err < 0.5, f"twin not resolved: final rot err {err}"
+
+
+# ---------------------------------------------------------------------------
+# The Triton kernel (interpret mode) vs its plain formulation and the
+# exact XLA path, and the wrapper around it
+# ---------------------------------------------------------------------------
+
+KERNEL_CASES = {
+    # id: (K candidates, objects, lazy ages, storage, P, level)
+    "k2-full-bf16": (2, 1, False, jnp.bfloat16, 96, "full"),
+    "k1-full-f32": (1, 1, False, jnp.float32, 96, "full"),
+    "k2-aged-bf16": (2, 1, True, jnp.bfloat16, 96, "full"),
+    "k2-aged-f32-p300": (2, 1, True, jnp.float32, 300, "full"),
+    "k2-two-objects-f32": (2, 2, False, jnp.float32, 64, "full"),
+    "k2-compact-aged-bf16": (2, 1, True, jnp.bfloat16, 96, "compact"),
+    "k3-compact-two-objects-f32": (3, 2, True, jnp.float32, 200, "compact"),
+}
+
+
+def _kernel_case(K, objects, aged, dtype, P, level, nb=16):
+    """Inputs of one kernel call plus its exact-XLA-path expectation."""
+    from dbot_ros_tpu.models.sensor import render_scene
+    from dbot_ros_tpu.ops import raycast_pallas as rp
+
+    cam = make_camera(np.array([[24.0, 0, 8], [0, 24.0, 8], [0, 0, 1.0]]),
+                      16, 16)
+    meshes = [l_shape_mesh(), box_mesh(0.05, 0.08, 0.04)][:objects]
+    bp = beam.make_beam_params(model_sigma=0.005, sigma_factor=0.0)
+    op = occlusion.make_occlusion_params()
+    refs = [jnp.array([-0.02, 0.0, 0.62, 1, 0, 0, 0], jnp.float32),
+            jnp.array([0.03, 0.01, 0.55, 1, 0, 0, 0], jnp.float32)]
+    keys = jax.random.split(jax.random.PRNGKey(11), 4)
+    poses = jnp.stack([_perturb_poses(keys[k], refs[k], P)
+                       for k in range(objects)], axis=1)   # (P, O, 7)
+    states = jnp.zeros((P, objects, 13)).at[..., :7].set(poses)
+    z = render_scene(meshes, jnp.stack(refs[:objects]), cam.rays)
+    z_obs = jnp.where(jnp.isfinite(z), z, 2.0).at[::23].set(jnp.nan)
+    sensor = make_fused_sensor(meshes, cam, bp, op, interpret=True, nb=nb,
+                               num_candidates=K, bary_slack=0.0)
+    cand = sensor.candidates(states)                       # (N, K)
+    N = cam.num_pixels
+    p_pad, pr = rp._particle_pads(P)
+    gt = jnp.concatenate([rp.pack_constants(m, poses[:, k], p_pad)
+                          for k, m in enumerate(meshes)])
+    occ_pn = (0.6 * jax.random.uniform(keys[2], (P, N))).astype(dtype)
+    q = rp.occ_to_kernel(occ_pn, nb=nb)
+    ages = (jax.random.randint(keys[3], (N,), 0, 5).astype(jnp.float32)
+            if aged else jnp.zeros((N,), jnp.float32))
+    sel = np.arange(N)
+    if level == "compact":
+        deg = sensor.union_triangles - 1
+        act = np.nonzero((np.asarray(cand) != deg).any(axis=1))[0]
+        rest = np.setdiff1d(sel, act)
+        sel = np.concatenate([act, rest])[:rp._round_up(len(act) + 5, nb)]
+        uniq = np.unique(np.asarray(cand)[sel])
+        uniq = np.concatenate([uniq, [deg] * 3])           # degenerate pad
+        gt = jnp.take(gt, jnp.asarray(uniq), axis=0)
+        cand_in = jnp.asarray(np.searchsorted(uniq, np.asarray(cand)[sel]),
+                              jnp.int32)
+        q = rp.gather_pixel_rows(q, jnp.asarray(sel, jnp.int32), pr)
+    else:
+        cand_in = cand
+    args = (gt, q, z_obs[sel], cand_in, cam.rays[sel],
+            rp.make_params_vec(bp, op, jnp.float32(1.0), 0.0))
+    kw = dict(num_particles=P, nb=nb, ages=ages[sel] if aged else None)
+
+    # exact XLA path: HIGHEST-precision intersection of the same
+    # candidates, the lazily aged prior, then image_loglik
+    Gs, tns = zip(*[raycast.pose_tri_constants(m, poses[:, k])
+                    for k, m in enumerate(meshes)])
+    Gc = jnp.take(jnp.concatenate(Gs, axis=1), cand[sel], axis=1)
+    tc = jnp.take(jnp.concatenate(tns, axis=1), cand[sel], axis=1)
+    nums = jnp.einsum("nd,pnkid->pnki", cam.rays[sel], Gc,
+                      precision=jax.lax.Precision.HIGHEST)
+    depth = jnp.min(raycast._intersect_from_numerators(
+        nums[..., 0], nums[..., 1], nums[..., 2], tc), axis=-1)
+    g = op.p_occluded_occluded - op.p_occluded_visible
+    pi = op.p_occluded_visible / (1.0 - g)
+    occ_f = occ_pn.astype(jnp.float32)[:, sel]
+    occ_now = pi + jnp.power(g, ages[sel])[None] * (occ_f - pi)
+    exact = image_loglik(depth, z_obs[sel], occ_now, bp, op, dt_frames=1.0)
+    return args, kw, exact, len(sel)
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_triton_kernel_matches_plain_and_exact(case):
+    from dbot_ros_tpu.ops import raycast_pallas as rp
+
+    K, objects, aged, dtype, P, level = KERNEL_CASES[case]
+    args, kw, (ll_x, occ_x), n_in = _kernel_case(K, objects, aged, dtype, P,
+                                                 level)
+    ll, occ_k = rp.fused_loglik_packed(*args, interpret=True, **kw)
+    ll_p, occ_p = rp.fused_loglik_reference(*args, **kw)
+    assert ll.shape == (P,) and occ_k.shape == args[1].shape
+    assert occ_k.dtype == dtype
+    # same f32 math, another summation order
+    np.testing.assert_allclose(np.asarray(ll), np.asarray(ll_p),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(occ_k, np.float32),
+                               np.asarray(occ_p, np.float32),
+                               atol=4e-3 if dtype == jnp.bfloat16 else 1e-6)
+    # exact path: erf normalizer ≈ 1, aged prior in one closed-form step
+    np.testing.assert_allclose(np.asarray(ll), np.asarray(ll_x),
+                               rtol=2e-4, atol=0.05)
+    occ_pn = rp.occ_from_kernel(occ_k.astype(jnp.float32), n_in, P, nb=16)
+    np.testing.assert_allclose(
+        np.asarray(occ_pn), np.asarray(occ_x),
+        atol=4e-3 if dtype == jnp.bfloat16 else 2e-4)
+
+
+def test_kernel_wrapper_partials_and_padding(monkeypatch):
+    """Per-chunk partial sums reduce to the loglik; the pixel grid's
+    padding rows (z = NaN, degenerate candidate) each add log
+    p_invalid_background and keep their propagated prior."""
+    from dbot_ros_tpu.ops import raycast_pallas as rp
+
+    args, kw, _, n_in = _kernel_case(2, 1, True, jnp.float32, 96, "full")
+    gt, q, z, cand, rays, pv = args
+    N = z.shape[0] - 7                        # drop 7 px → 7 padding rows
+    P, nb = kw["num_particles"], kw["nb"]
+    p_pad, pr = rp._particle_pads(P)
+    q = q[:rp._round_up(N, nb) * pr]
+    sub = (gt, q, z[:N], cand[:N], rays[:N], pv)
+    ages = kw["ages"][:N]
+    ll, occ = rp.fused_loglik_packed(*sub, P, nb=nb, interpret=True,
+                                     ages=ages)
+    ll_p, occ_p = rp.fused_loglik_reference(*sub, P, nb=nb, ages=ages)
+    np.testing.assert_allclose(np.asarray(ll), np.asarray(ll_p), rtol=1e-5)
+    # padding rows: age 0, so the prior propagates by one frame
+    op = occlusion.make_occlusion_params()
+    g = op.p_occluded_occluded - op.p_occluded_visible
+    pi = op.p_occluded_visible / (1.0 - g)
+    tail = np.asarray(q).reshape(-1, p_pad)[N:]
+    np.testing.assert_allclose(np.asarray(occ).reshape(-1, p_pad)[N:],
+                               pi + g * (tail - pi), atol=1e-6)
+    # the padding pixels' share: 7 · log p_invalid_background (nb=1
+    # lays out the same N pixels with no padding row)
+    ll_nopad, _ = rp.fused_loglik_reference(
+        gt, q[:N * pr], z[:N], cand[:N], rays[:N], pv, P, nb=1, ages=ages)
+    bp = beam.make_beam_params(model_sigma=0.005, sigma_factor=0.0)
+    np.testing.assert_allclose(
+        np.asarray(ll) - np.asarray(ll_nopad),
+        7 * np.log(float(bp.p_invalid_background)), rtol=1e-4)
+    # partial-sum rows: one per pixel chunk, summed by the wrapper
+    monkeypatch.setattr(rp, "_PIX_BLOCK", 8)
+    calls = []
+    real = rp.pl.pallas_call
+
+    def spy(kernel, **kwargs):
+        calls.append(kwargs)
+        return real(kernel, **kwargs)
+
+    monkeypatch.setattr(rp.pl, "pallas_call", spy)
+    ll8, _ = rp.fused_loglik_packed(*sub, P, nb=nb, interpret=True,
+                                    ages=ages)
+    n_pad = rp._round_up(N, nb)
+    assert calls[0]["grid"] == (p_pad // rp._LANE_BLOCK, n_pad // 8)
+    assert calls[0]["out_shape"][1].shape == (n_pad // 8, p_pad)
+    assert calls[0]["backend"] == "triton"
+    np.testing.assert_allclose(np.asarray(ll8), np.asarray(ll), rtol=1e-5)
+
+
+def test_kernel_needs_gpu_or_explicit_interpret():
+    """interpret=None never means 'interpret because there is no GPU'."""
+    from dbot_ros_tpu.ops import raycast_pallas as rp
+
+    cam, mesh, bp, op, ref, poses, z_obs, occ0 = setup(P=8)
+    with pytest.raises(ValueError, match="interpret=True"):
+        make_fused_sensor(mesh, cam, bp, op)
+    with pytest.raises(ValueError, match="interpret=True"):
+        rp.resolve_interpret(False)
+    assert rp.resolve_interpret(True) is True
+    args, kw, _, _ = _kernel_case(1, 1, False, jnp.float32, 8, "full")
+    with pytest.raises(ValueError, match="compiles only for the GPU"):
+        rp.fused_loglik_packed(*args, **kw)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_plain(gpu):
+    """On the card: the compiled kernel vs its plain formulation."""
+    from dbot_ros_tpu.ops import raycast_pallas as rp
+
+    for case in ("k2-aged-bf16", "k3-compact-two-objects-f32"):
+        K, objects, aged, dtype, P, level = KERNEL_CASES[case]
+        args, kw, _, _ = _kernel_case(K, objects, aged, dtype, P, level)
+        ll, occ = jax.jit(functools.partial(rp.fused_loglik_packed,
+                                            **kw))(*args)
+        ll_p, occ_p = rp.fused_loglik_reference(*args, **kw)
+        np.testing.assert_allclose(np.asarray(ll), np.asarray(ll_p),
+                                   rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(np.asarray(occ, np.float32),
+                                   np.asarray(occ_p, np.float32),
+                                   atol=4e-3)

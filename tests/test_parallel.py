@@ -251,7 +251,7 @@ def test_counts_exchange_capacity_overflow_falls_back():
 
 def test_multi_object_distributed_step():
     """K=2 objects across the 8-device mesh: per-object coordinate
-    blocks with global per-block resampling (VERDICT r2 item 2 — the
+    blocks with global per-block resampling (the
     states[:, 0] hardcode is gone). Both objects must track."""
     K = np.array([[28.0, 0, 10], [0, 28.0, 10], [0, 0, 1.0]])
     cam = make_camera(K, 20, 20)
@@ -288,7 +288,7 @@ def test_multi_object_distributed_step():
 def test_multi_scene_2d_mesh_step():
     """The 2-D Mesh(("host","chip")) step: scenes data-parallel on the
     host axis, particles + collectives on the chip axis (SURVEY §7
-    layer 8; VERDICT r2 item 1). Every scene must track its own pose."""
+    layer 8). Every scene must track its own pose."""
     cam, mesh, tp, sensor = setup()
     mesh2d = dist_filter.make_scene_mesh(2, 4)
     S, n_part = 2, 32

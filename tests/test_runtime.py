@@ -322,7 +322,7 @@ def test_threaded_source_drop_oldest_external_push():
 
 
 def test_threaded_source_closed_loop_producer_outruns_tracker():
-    """VERDICT r3 item 6: producer thread replays frames flat-out while
+    """producer thread replays frames flat-out while
     the (slower) tracker consumes through node.run — the tracker must
     drop stale frames, stay on the freshest, and still track."""
     import jax.numpy as jnp
@@ -374,7 +374,7 @@ def test_threaded_source_closed_loop_producer_outruns_tracker():
 
 
 def test_u16_camera_pipeline_tracks():
-    """VERDICT r3 item 7: an eval leg through the NATIVE u16 camera
+    """an eval leg through the NATIVE u16 camera
     pipeline — oracle render at native resolution with edge artifacts +
     mm quantization, u16 wire format, preprocess_depth_u16 strided
     downsample — must still track."""
@@ -452,7 +452,7 @@ def test_describe_trackers():
 def test_node_threads_real_dt_on_dropped_frames():
     """node.run must pass dt = (1 + skipped)/frame_rate into track()
     when a push source reports dropped frames (ref D7 dt-aware
-    transitions + R5 timestamp tracking; VERDICT r4 item 3)."""
+    transitions + R5 timestamp tracking)."""
     cam = small_camera()
     mesh = box_mesh(0.08, 0.06, 0.05)
     tracker = ParticleTracker(small_particle_config(32), meshes=[mesh],
@@ -477,8 +477,8 @@ def test_node_threads_real_dt_on_dropped_frames():
 
 
 def test_dt_scaling_beats_pinned_dt_on_blackout_stream():
-    """Drop-heavy closed loop (the ThreadedSource drop-oldest regime,
-    VERDICT r4 item 3): a 15-frame blackout during sustained motion.
+    """Drop-heavy closed loop (the ThreadedSource drop-oldest regime):
+    a 15-frame blackout during sustained motion.
     With the real interval threaded into track(), prediction
     extrapolates the motion across the gap AND the transition noise
     inflates to cover it — both filters re-lock immediately. The

@@ -50,8 +50,8 @@ def test_watchdog_beta_floor():
     assert wd.update(FakeInfo(mean_beta=0.01))
 
 
-# Session-33j on-chip GF teleport trace (benchmarks/session33j.log
-# f17-f34): beta collapses at the teleport (4th value) but OSCILLATES
+# A recorded GF teleport trace (frames 17-34): beta collapses at the
+# teleport (4th value) but OSCILLATES
 # around the 0.05 beta_min floor, so the consecutive-frame streak kept
 # resetting and detection fell through to the 15-frame lock-in tier.
 _S33J_TELEPORT_BETA = [
@@ -147,7 +147,7 @@ def test_reinit_recovers_lost_track():
 
 
 def test_watchdog_closed_loop_auto_recovery():
-    """VERDICT r2 item 7: the watchdog wired into node.run must TRIP on an
+    """the watchdog wired into node.run must TRIP on an
     induced tracking loss (ground-truth teleport), re-initialize via the
     automatic 6-DoF search (initializer.initialize_tracker), and
     re-acquire within a few frames — no human in the loop."""
@@ -199,7 +199,7 @@ def test_watchdog_closed_loop_auto_recovery():
 
 
 def test_watchdog_closed_loop_two_object_recovery():
-    """VERDICT r3 item 3: K=2 scene, one object teleports mid-sequence;
+    """K=2 scene, one object teleports mid-sequence;
     the watchdog trips and the automatic re-init (now arity-correct:
     runtime.initializer.find_initial_poses) re-acquires BOTH objects."""
     import jax.numpy as jnp
@@ -218,7 +218,7 @@ def test_watchdog_closed_loop_two_object_recovery():
     cam = make_camera(K, 32, 32)
     meshes = [l_shape_mesh(), box_mesh(0.05, 0.07, 0.03)]
     # budgets trimmed r5: 192p/30f -> 144p/24f re-validated (suite
-    # wall-clock item, VERDICT r4 weak #7) — same trip/re-acquire
+    # wall-clock item) — same trip/re-acquire
     # margins, ~35 % cheaper
     config = cfg.ParticleTrackerConfig(
         evaluation_count=144, max_kl_divergence=0.8,
@@ -259,8 +259,8 @@ def test_watchdog_closed_loop_two_object_recovery():
 
 @pytest.mark.parametrize("seed", [1, 3])
 def test_watchdog_beta_depression_recovers_rgf_lockin(seed):
-    """GF lock-in detector (round 4) + flip-aware recovery (round 5,
-    VERDICT r4 item 4): after an occluder crossing the memoryless RGF
+    """GF lock-in detector (round 4) + flip-aware recovery (round 5):
+    after an occluder crossing the memoryless RGF
     locks a wrong rotation basin with a PERSISTENTLY depressed inlier
     rate (EVAL.md occluder/rgf note). The sustained-beta watchdog
     signal must trip well after the transient crossing and the re-init
