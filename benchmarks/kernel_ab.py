@@ -15,13 +15,14 @@ sensor-only step for each variant, in alternating rounds:
 Each variant's first sensor loglik is compared with the production one.
 
 ``--tune [LxPxWxS,...]`` first sweeps the kernel's tile sizes (lanes L,
-pixels P), warps W and stages S on the kernel alone (full and tight
-compaction level; default: the whole grid), ``--tune-repeats`` times; ``--trace DIR`` writes a
-profiler trace of the production step and prints its per-op table;
-``--hlo`` lists the copies of 1 MiB or more in the compiled production
-step (a full-map copy there means an update did not land in place).
-``--particles/--downsampling/--interpret`` shrink the run for a CPU
-rehearsal (its times are not device numbers).
+pixels P), warps W and stages S on the kernel alone, ``--tune-repeats``
+times (default: the whole grid), at the full level (every pixel, the
+whole mesh's slabs) and at the tight compaction level as production runs
+it (the selected pixels and the compacted slabs of their triangles,
+``chip_smoke.tight_level``); ``--trace DIR`` writes a profiler trace of
+the production step and prints its per-op table; ``--hlo`` lists the
+copies of 1 MiB or more in the compiled production step (a full-map copy
+there means an update did not land in place).
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+
+P = 10_000            # the bench's operating point: 10k particles,
+DOWNSAMPLING = 8      # 80×60 px,
+SUBDIVISIONS = 3      # a 1280-triangle icosphere
+ITERS = 20            # steps per timing window
+WINDOWS = 5           # windows per variant and round
 
 
 @contextlib.contextmanager
@@ -67,13 +74,7 @@ def windows_ms(fn, state, n_windows, iters):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--particles", type=int, default=10_000)
-    ap.add_argument("--downsampling", type=int, default=8)
-    ap.add_argument("--subdivisions", type=int, default=3)
-    ap.add_argument("--interpret", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--windows", type=int, default=5)
     ap.add_argument("--tune", nargs="?", const="all", default=None)
     ap.add_argument("--tune-repeats", type=int, default=1)
     ap.add_argument("--trace", default=None)
@@ -94,21 +95,19 @@ def main():
     dev = jax.devices()[0]
     print(f"device: {dev.platform} {dev.device_kind} x{len(jax.devices())}",
           flush=True)
-    interp = True if args.interpret else None
-    P = args.particles
     cam, mesh, bp, op, ref, states, z_obs = chip_smoke._scene(
-        P, args.downsampling, args.subdivisions, spread=(0.01, 0.0))
+        P, DOWNSAMPLING, SUBDIVISIONS, spread=(0.01, 0.0))
     tp = transition.make_transition_params(0.1, 0.5, damping=4.0)
 
     if args.tune:
-        tune(rp, mesh, cam, bp, op, states, z_obs, interp, args)
+        tune(rp, mesh, cam, bp, op, states, z_obs, args)
 
     def xla_loglik(*a, interpret=None, **kw):
         return rp.fused_loglik_reference(*a, **kw)
 
     def filter_step():
         """Sensor, jitted production ``rbcpf_step`` and a fresh belief."""
-        sensor = rp.make_fused_sensor(mesh, cam, bp, op, interpret=interp)
+        sensor = rp.make_fused_sensor(mesh, cam, bp, op)
         fstep = jax.jit(functools.partial(
             rbcpf.rbcpf_step, loglik_fn=sensor, trans_params=tp,
             dt=1.0 / 30.0, max_kl_divergence=1.0), donate_argnums=(0,))
@@ -136,7 +135,7 @@ def main():
                 c_sensor = time.perf_counter() - t0
                 first_ll.setdefault(name, np.asarray(ll))
                 w, _ = windows_ms(lambda o: sstep(states, o, z_obs)[1],
-                                  occ, args.windows, args.iters)
+                                  occ, WINDOWS, ITERS)
                 results[name]["sensor"] += w
 
                 t0 = time.perf_counter()
@@ -144,7 +143,7 @@ def main():
                 jax.block_until_ready(belief)
                 c_step = time.perf_counter() - t0
                 w2, _ = windows_ms(lambda b: fstep(b, z_obs)[0], belief,
-                                   args.windows, args.iters)
+                                   WINDOWS, ITERS)
                 results[name]["kl"] += w2
             print(f"round {rnd} {name}: sensor {min(w):.4f} ms/step "
                   f"(compile {c_sensor:.1f} s), rbcpf_step kl "
@@ -222,13 +221,12 @@ def big_copies(hlo_text, min_bytes=1 << 20):
     print(f"hlo: {found} copies of >= {min_bytes / 2**20:.0f} MiB")
 
 
-def tune(rp, mesh, cam, bp, op, states, z_obs, interp, args):
+def tune(rp, mesh, cam, bp, op, states, z_obs, args):
     """Kernel-alone time per (lane block, pixel block, warps, stages)."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
+    import chip_smoke
 
-    P = states.shape[0]
     pv = rp.make_params_vec(bp, op, jnp.float32(1.0), 0.0)
     if args.tune == "all":
         grid = list(itertools.product((128, 256, 512), (8, 16, 32),
@@ -237,36 +235,29 @@ def tune(rp, mesh, cam, bp, op, states, z_obs, interp, args):
     else:
         grid = [tuple(int(v) for v in c.split("x"))
                 for c in args.tune.split(",")]
-    if args.interpret:
-        grid = grid[:2]
     for lanes, pix, warps, stages in grid * args.tune_repeats:
         with patched(rp, _LANE_BLOCK=lanes, _PIX_BLOCK=pix,
                      _NUM_WARPS=warps, _NUM_STAGES=stages):
-            sensor = rp.make_fused_sensor(mesh, cam, bp, op,
-                                          interpret=interp)
+            sensor = rp.make_fused_sensor(mesh, cam, bp, op)
             p_pad, pr = rp._particle_pads(P)
             n = cam.num_pixels
             cand = sensor.candidates(states)
-            deg = sensor.union_triangles - 1
-            act = np.nonzero((np.asarray(cand) != deg).any(axis=1))[0]
-            pcap = sensor._active_cap(n, sensor.levels[0][0])
-            sel = jnp.asarray(np.resize(act, pcap).astype(np.int32))
-            gt = sensor._pack_full(states, p_pad)
+            gt_c, sel, cand_c, _ = chip_smoke.tight_level(sensor, states,
+                                                          cand)
             occ = jnp.full((rp._round_up(n, sensor.nb) * pr, 128), 0.1,
                            jnp.bfloat16)
+            levels = [
+                (sensor._pack_full(states, p_pad), occ, z_obs, cand,
+                 cam.rays),
+                (gt_c, rp.gather_pixel_rows(occ, sel, pr), z_obs[sel],
+                 cand_c, cam.rays[sel]),
+            ]
             row = []
-            for lvl in ("full", "tight"):
-                if lvl == "full":
-                    a = (gt, occ, z_obs, cand, cam.rays)
-                else:
-                    a = (gt, rp.gather_pixel_rows(occ, sel, pr),
-                         z_obs[sel], cand[sel], cam.rays[sel])
+            for a in levels:
                 f = jax.jit(functools.partial(
-                    rp.fused_loglik_packed, num_particles=P, nb=sensor.nb,
-                    interpret=interp))
+                    rp.fused_loglik_packed, num_particles=P, nb=sensor.nb))
                 jax.block_until_ready(f(*a, pv))
-                ws, _ = windows_ms(lambda _: f(*a, pv), None, 3,
-                                   args.iters)
+                ws, _ = windows_ms(lambda _: f(*a, pv), None, 3, ITERS)
                 row.append(min(ws))
         print(f"tune lanes={lanes} pix={pix} warps={warps} "
               f"stages={stages}: full {row[0]:.4f} ms, tight "

@@ -56,11 +56,6 @@ LL_RTOL = 2e-4
 LL_ATOL = 0.25
 # bf16 occlusion storage: one ulp of a [0, 1] probability is ≤ 2⁻⁸.
 OCC_ATOL = 4e-3
-# The Gaussian tracker's example config sizes its pixel stride to a FLOP
-# budget (pixel_stride 0 → 16 at 80×60 with 1408 triangles). The smoke
-# object covers ~80 of 4800 pixels, so stride 16 leaves ~5 on it and the
-# filter cannot track on any backend; the smoke run evaluates every pixel.
-GAUSSIAN_OVERRIDES = {"gaussian_tracker": {"pixel_stride": 1}}
 
 
 def log(msg):
@@ -134,6 +129,34 @@ def _close(name, got, want, rtol, atol):
                                err_msg=name)
 
 
+def tight_level(sensor, states, cand):
+    """The sensor's tight compaction level, built on the host: packed
+    slabs of the selected triangles only, the selected pixels (active
+    ones first, padded to the level's cap), their candidate ids
+    renumbered into the slabs, and the number of active pixels."""
+    import jax.numpy as jnp
+
+    from dbot_ros_tpu.ops import raycast_pallas as rp
+
+    n = cand.shape[0]
+    deg = sensor.union_triangles - 1
+    cand_np = np.asarray(cand)
+    active = np.nonzero((cand_np != deg).any(axis=1))[0]
+    pcap = sensor._active_cap(n, sensor.levels[0][0])
+    tcap = sensor._tri_cap(sensor.levels[0][1])
+    inactive = np.setdiff1d(np.arange(n), active)
+    sel = np.concatenate([active, inactive])[:pcap].astype(np.int32)
+    uniq = np.unique(cand_np[sel])
+    if len(active) > pcap or len(uniq) >= tcap:
+        raise AssertionError(f"scene does not fit the tight level: "
+                             f"{len(active)} px, {len(uniq)} triangles")
+    uniq = np.concatenate([uniq, np.full(tcap - len(uniq), deg)])
+    cand_c = np.searchsorted(uniq, cand_np[sel]).astype(np.int32)
+    p_pad, _ = rp._particle_pads(states.shape[0])
+    gt = sensor._pack_selected(states, p_pad, jnp.asarray(uniq))
+    return gt, jnp.asarray(sel), jnp.asarray(cand_c), len(active)
+
+
 def phase_kernel_parity(num_particles=P, downsampling=DOWNSAMPLING,
                         subdivisions=3, interpret=None):
     """Compiled kernel vs plain formulation, then sensor vs exact model."""
@@ -151,7 +174,6 @@ def phase_kernel_parity(num_particles=P, downsampling=DOWNSAMPLING,
     n, nb = cam.num_pixels, sensor.nb
     p_pad, pr = rp._particle_pads(num_particles)
     n_pad = rp._round_up(n, nb)
-    deg = sensor.union_triangles - 1
     cand = sensor.candidates(states)
     key = jax.random.PRNGKey(1)
     occ = (0.6 * jax.random.uniform(key, (n_pad * pr, 128))).astype(
@@ -160,30 +182,16 @@ def phase_kernel_parity(num_particles=P, downsampling=DOWNSAMPLING,
                               6).astype(jnp.float32)
     pv = rp.make_params_vec(bp, op, jnp.float32(1.0), 0.0)
 
-    # compacted level: active pixels and their triangles only (the
-    # sensor's tight ladder level, built on the host here)
-    cand_np = np.asarray(cand)
-    active = np.nonzero((cand_np != deg).any(axis=1))[0]
-    pcap = sensor._active_cap(n, sensor.levels[0][0])
-    tcap = sensor._tri_cap(sensor.levels[0][1])
-    inactive = np.setdiff1d(np.arange(n), active)
-    sel = np.concatenate([active, inactive])[:pcap].astype(np.int32)
-    uniq = np.unique(cand_np[sel])
-    if len(active) > pcap or len(uniq) >= tcap:
-        raise AssertionError(f"scene does not fit the tight level: "
-                             f"{len(active)} px, {len(uniq)} triangles")
-    uniq = np.concatenate([uniq, np.full(tcap - len(uniq), deg)])
-    cand_c = np.searchsorted(uniq, cand_np[sel]).astype(np.int32)
-    log(f"  scene: {num_particles} particles, {n} px, {len(active)} "
-        f"active px (level cap {pcap}), {mesh.num_triangles} triangles")
+    gt_c, sel, cand_c, n_active = tight_level(sensor, states, cand)
+    log(f"  scene: {num_particles} particles, {n} px, {n_active} "
+        f"active px (level cap {len(sel)}), {mesh.num_triangles} "
+        f"triangles")
 
     levels = {
         "full": (sensor._pack_full(states, p_pad), occ, z_obs, cand,
                  cam.rays, ages, nb),
-        "compact": (sensor._pack_selected(states, p_pad, jnp.asarray(uniq)),
-                    rp.gather_pixel_rows(occ, jnp.asarray(sel), pr),
-                    z_obs[sel], jnp.asarray(cand_c), cam.rays[sel],
-                    ages[sel], nb),
+        "compact": (gt_c, rp.gather_pixel_rows(occ, sel, pr), z_obs[sel],
+                    cand_c, cam.rays[sel], ages[sel], nb),
     }
     for lvl, (gt, q, z, c, rays, age, nbl) in levels.items():
         for aged in (False, True):
@@ -233,19 +241,16 @@ def phase_kernel_parity(num_particles=P, downsampling=DOWNSAMPLING,
            occ_ref, 0.0, OCC_ATOL)
 
 
-def _example_config(root, name, mesh_path, overrides):
+def _example_config(root, name, mesh_path):
     with open(os.path.join(root, "examples", f"{name}.json")) as fh:
         conf = json.load(fh)
     conf["object"]["meshes"] = [mesh_path]
     conf["object"].pop("directory", None)
-    for key, value in overrides.items():
-        conf[key] = value
     return conf
 
 
 def phase_trackers(work_dir, which=("particle_tracker", "gaussian_tracker"),
-                   subdivisions=3, frames=FRAMES, max_rmse=MAX_RMSE,
-                   overrides=None):
+                   subdivisions=3, frames=FRAMES, max_rmse=MAX_RMSE):
     """``dbot_ros_tpu simulate`` on the example configs (in process: a
     second JAX process could not open the card)."""
     from dbot_ros_tpu.runtime import cli
@@ -261,8 +266,7 @@ def phase_trackers(work_dir, which=("particle_tracker", "gaussian_tracker"),
         fh.writelines(f"v {a:.9g} {b:.9g} {c:.9g}\n" for a, b, c in v)
         fh.writelines(f"f {a} {b} {c}\n" for a, b, c in f)
     for name in which:
-        conf = _example_config(root, name, mesh_path,
-                               (overrides or {}).get(name, {}))
+        conf = _example_config(root, name, mesh_path)
         path = os.path.join(work_dir, f"{name}.json")
         with open(path, "w") as fh:
             json.dump(conf, fh)
@@ -389,8 +393,7 @@ def main(argv=None):
             ("particle", functools.partial(
                 phase_trackers, work, ("particle_tracker",))),
             ("gaussian", functools.partial(
-                phase_trackers, work, ("gaussian_tracker",),
-                overrides=GAUSSIAN_OVERRIDES)),
+                phase_trackers, work, ("gaussian_tracker",))),
             ("distributed", phase_distributed),
         ]
     for name, fn in phases:

@@ -108,20 +108,32 @@ def check_fit(num_particles: int, num_pixels: int, padded_triangles: int,
 
 def rgf_pixel_stride(num_pixels: int, padded_triangles: int,
                      num_objects: int = 1, iterations: int = 3,
+                     sigma_backend: str = "deferred",
+                     num_candidates: int = 6,
                      budget_gflops: float = 5.0, max_stride: int = 64
                      ) -> int:
     """Degrade-to-fit for the Gaussian tracker (the GF analog of ref D14).
 
-    The RGF's per-frame cost is the sigma-point raycast: (2·12K+1) sigma
-    poses × pixels × triangles, repeated for each iterated update — with
-    K objects and full pixels this grows without the PF's compaction
-    machinery. Returns the smallest power-of-two
-    ``pixel_stride`` that keeps the estimated frame cost under
-    ``budget_gflops`` (≈60 flops per ray-triangle test, exact-scan
-    raycast — ops/raycast.py).
+    The RGF's per-frame cost that the stride cuts is the sigma-point
+    render: (2·12K+1) sigma poses × pixels × the triangles each pixel
+    tests, repeated for each iterated update. ``sigma_backend`` names
+    the renderer in use (GaussianTrackerConfig.sigma_backend): the
+    ``"exact"`` scan tests every padded triangle (ops/raycast.py); the
+    ``"deferred"`` pass tests ``num_candidates`` per object
+    (ops/deferred.make_sigma_renderer). The deferred pass's one exact
+    scan at the mean covers the full grid whatever the stride, so it is
+    not counted. Returns the smallest power-of-two ``pixel_stride`` that
+    keeps the estimate under ``budget_gflops`` (≈60 flops per
+    ray-triangle test).
     """
     n_sigma = 2 * 12 * num_objects + 1
-    per_px = n_sigma * padded_triangles * (iterations + 1) * 60
+    if sigma_backend == "exact":
+        tests = padded_triangles
+    elif sigma_backend == "deferred":
+        tests = num_objects * num_candidates
+    else:
+        raise ValueError(f"unknown sigma_backend {sigma_backend!r}")
+    per_px = n_sigma * tests * (iterations + 1) * 60
     total = per_px * num_pixels
     stride = 1
     while (total / stride > budget_gflops * 1e9

@@ -62,7 +62,8 @@ _BIG = 1e30
 # particles (benchmarks/kernel_ab.py --tune): 256 lanes beat 128 and 512
 # at 2–4 warps; at the tight compaction level, which the operating point
 # runs every frame (448 px → 56 chunks × 40 tiles = 2240 programs),
-# 8 pixels per program with 4 warps and 2 stages had the lowest median.
+# 8 or 16 pixels per program with 4 warps and 2 or 3 stages read within
+# the spread of repeated readings (PERF.md); 8 / 4 / 2 is kept.
 _LANE_BLOCK = 256
 _PIX_BLOCK = 8
 _NUM_WARPS = 4
@@ -424,15 +425,16 @@ def grouped_lane_gather(q, idx, n_pad: int, pr: int):
 
 
 def scatter_pixel_rows(q, vals, sel, pr: int):
-    """In-place pixel-row scatter: ``q[sel[j]·pr:(sel[j]+1)·pr] =
+    """Pixel-row scatter: ``q[sel[j]·pr:(sel[j]+1)·pr] =
     vals[j·pr:(j+1)·pr]`` for every selected pixel j.
 
     ``sel`` entries must be distinct (they are: the compaction ladder's
     selection ranks are a permutation prefix). Each pixel's particle
     tile is one contiguous row of the (pixels, Pp) view, so XLA scatters
-    whole rows; with ``q`` donated (the tracker's step donates the
-    belief) the update lands in place and only the selected rows are
-    written.
+    whole rows. Inside the compaction ladder's ``lax.cond`` the scatter
+    is NOT in place even with the belief donated: the compiled step
+    copies the whole map before it in each compacted branch (PERF.md
+    Findings; moving the merge out of the cond is ROADMAP Speed 6).
     """
     n_pix = q.shape[0] // pr
     rows = vals.reshape(sel.shape[0], pr * 128)
@@ -1093,10 +1095,11 @@ class FusedSensor:
                     selm = jnp.pad(sel_mask, (0, n_pad - N))
                     age_out = jnp.where(selm, 0.0, age + dtf)
                     if self.merge == "scatter":
-                        # In-place row scatter of ONLY the selected
-                        # pixels' rows (scatter_pixel_rows) — the
-                        # take+where merge below reads and writes the
-                        # full map.
+                        # Row scatter of the selected pixels' rows
+                        # (scatter_pixel_rows). Inside this cond XLA
+                        # copies the full map before it (not in place;
+                        # ROADMAP Speed 6); the take+where merge below
+                        # reads and writes the full map as well.
                         q_out = scatter_pixel_rows(q_k, occ_post, sel, pr)
                         return ll + scalar, (q_out, age_out)
                     # "select" merge (kept for A/B): inverse row gather

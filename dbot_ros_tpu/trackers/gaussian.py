@@ -65,7 +65,8 @@ class GaussianTracker:
             stride = rgf_pixel_stride(
                 self.camera.num_pixels,
                 max(m.padded_triangles for m in self.meshes),
-                self.num_objects, config.update_iterations)
+                self.num_objects, config.update_iterations,
+                config.sigma_backend, config.sigma_candidates)
         stride = max(stride, 1)
         self._pixel_idx = (None if stride == 1 else
                            jnp.arange(0, self.camera.num_pixels, stride))

@@ -69,21 +69,34 @@ def test_stopwatch_and_measure(capsys):
 
 
 def test_rgf_pixel_stride_degrade():
-    """GF degrade-to-fit (ref D14 analog): stride grows with work, 1 for
-    small problems, capped; GaussianTracker honors pixel_stride=0=auto."""
+    """GF degrade-to-fit (ref D14 analog): stride grows with the work of
+    the sigma renderer in use, 1 for small problems, capped;
+    GaussianTracker honors pixel_stride=0=auto."""
+    import pytest
+
     from dbot_ros_tpu.ops.budget import rgf_pixel_stride
 
-    assert rgf_pixel_stride(400, 128) == 1
-    s1 = rgf_pixel_stride(4800, 1408)
-    s3 = rgf_pixel_stride(4800, 1408, num_objects=3)
+    assert rgf_pixel_stride(400, 128, sigma_backend="exact") == 1
+    s1 = rgf_pixel_stride(4800, 1408, sigma_backend="exact")
+    s3 = rgf_pixel_stride(4800, 1408, num_objects=3, sigma_backend="exact")
     assert s1 > 1 and s3 >= s1
-    assert rgf_pixel_stride(4800 * 64, 4096 * 16) <= 64  # capped
+    assert rgf_pixel_stride(4800 * 64, 4096 * 16,
+                            sigma_backend="exact") <= 64  # capped
+    # deferred (the default renderer) tests 6 candidates per pixel, not
+    # every triangle: the 80×60 frame keeps every pixel, even with 3
+    # objects; full 640×480 resolution degrades
+    assert rgf_pixel_stride(4800, 1408) == 1
+    assert rgf_pixel_stride(4800, 1408, num_objects=3) == 1
+    d1 = rgf_pixel_stride(4800 * 64, 1408)
+    assert 1 < d1 < rgf_pixel_stride(4800 * 64, 1408, num_objects=3)
+    with pytest.raises(ValueError, match="sigma_backend"):
+        rgf_pixel_stride(4800, 1408, sigma_backend="raster")
 
     import numpy as np
     from dbot_ros_tpu import config as cfg
     from dbot_ros_tpu.trackers.gaussian import GaussianTracker
-    from dbot_ros_tpu.utils.camera import make_camera
-    from dbot_ros_tpu.utils.mesh import box_mesh
+    from dbot_ros_tpu.utils.camera import default_kinect_camera, make_camera
+    from dbot_ros_tpu.utils.mesh import box_mesh, icosphere_mesh
 
     K = np.array([[48.0, 0, 16], [0, 48.0, 16], [0, 0, 1.0]])
     cam = make_camera(K, 32, 32)
@@ -92,6 +105,16 @@ def test_rgf_pixel_stride_degrade():
                          camera=cam)
     # tiny problem → auto keeps every pixel
     assert tr._pixel_idx is None
+    # the example config's operating point (80×60, 1280-triangle
+    # icosphere, deferred sigma renders) keeps every pixel; the exact
+    # scan there degrades
+    ico = icosphere_mesh(radius=0.06, subdivisions=3)
+    kin = default_kinect_camera(8)
+    tr = GaussianTracker(conf, meshes=[ico], camera=kin)
+    assert tr._pixel_idx is None
+    tr = GaussianTracker(cfg.GaussianTrackerConfig(
+        pixel_stride=0, sigma_backend="exact"), meshes=[ico], camera=kin)
+    assert tr._pixel_idx is not None and tr._pixel_idx[1] > 1
 
 
 def test_xla_tri_chunk_degrades_with_particles():
